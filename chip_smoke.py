@@ -23,8 +23,39 @@ Phases, each printed with its elapsed seconds:
          the kernel's launch count must equal the number of calls;
       b. the point_batch protocol (410 calls of 2000 frames), held against
          the committed CSV `runs/Test_DCCN_OFDM_Dense3_4mod_snr20_cpTrue_AWGN.csv`.
- 5. one `{"kernels": [...]}` line, then as the last line
-    `{"ok": true, "device": {...}}`.
+ 6. `fused_synthesize` against its plain version on the same Philox words:
+    ETU nbits 1 at 9,362 frames, AWGN nbits 4 at 1,001 frames (ragged),
+    mixAll nbits 2 at 997 frames.  Indices equal; signal and noise planes
+    within atol 1e-4 (the kernel's logf/sincosf and torch's differ by a few
+    ulp, on values up to ~10); `_combine_stats` within rtol 1e-5 (atol 1e-5
+    of each row's largest entry); the noise variance within 1 % of std^2
+    and the bits' mean within 1 % of 1/2.  Times: kernel, plain version,
+    bound.
+ 7. `dccn_fused_grads` against its plain version on phase 6's raw planes:
+    nbits 1 at 9,362 frames and nbits 4 at 1,001 frames, float32 and
+    bfloat16 GEMM inputs.  The forward output e within 1e-4 (float32) or
+    1e-3 (bfloat16) of its max; the gradients, with the plain version's
+    backward run from the kernel's e (so that both take the same slope at
+    every leaky kink), per leaf max |dg| <= 1e-4 or 1e-3 of the leaf's max
+    |g|; CE within rtol 1e-5; counts equal but for bits whose margin
+    |t| < 1e-5.  The plain version also against torch autograd of
+    `DCCNReceiver` + `cross_entropy` (nbits 1): asserted in float64 on
+    1,024 frames, measured in float32 at full size.
+    Times: kernel, plain version, bound (both compute bounds), and as the
+    library time autograd's forward and backward of the plain model
+    (cuBLAS).
+ 8. the training step at full width, `bench.py`'s configuration (nbits 1,
+    ETU, SNR 5 dB, bfloat16 GEMM inputs) on the fused route at 2,340,
+    9,362, 18,724 and 37,449 frames a step: one warm-up step and 20 timed
+    ones, ms/step and IQ samples/s; both kernels' launch counts must equal
+    the fused steps.  The same for the autograd route.  Then 20 steps from
+    one init on the same batches by each route (float32 products, 9,362
+    frames): step 1's gradients agree within 5e-2 of each leaf's max (leaky
+    kinks, see phase 7's float32 autograd number); the largest
+    parameter difference after 20 steps is printed.  Last, `fit` for three
+    epochs on AWGN at 5 dB from `init_state`: the train CE must fall.
+ 5. (printed last) one `{"kernels": [...]}` line with all three kernels,
+    then as the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
@@ -134,6 +165,397 @@ def check_curve(name, ber, ref, ref_name):
         raise AssertionError(f"{name} sweep misses {ref_name} at SNR {bad}")
 
 
+BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+TRAIN_FRAMES = (2340, 9362, 18724, 37449)   # bench.py's batch grid // 7
+SYNTH_CASES = (("ETU", 1, 9362), ("AWGN", 4, 1001), ("mixAll", 2, 997))
+
+
+def events_ms(fn, iters: int = 50) -> float:
+    """Mean ms of one call of `fn` over `iters` calls issued back to back
+    between two CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def synth_spec(channel: str, nbits: int):
+    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
+    from dl_ofdm_tpu_torch.config import OFDMConfig
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    from dl_ofdm_tpu_torch.ops.fused_synth import build_synth_spec
+    plan = build_plan(OFDMConfig(nbits=nbits))
+    ch = RayleighChannel(channel=channel, nfft=64,
+                         sample_rate=plan.sample_rate)
+    return build_synth_spec(plan, [None if ch._passthrough[i] else p
+                                   for i, p in enumerate(ch.profiles)], nbits)
+
+
+def synth_work(spec, b: int, rows_per_cta: int):
+    """(bytes, float32 operations) the synthesize function needs for b
+    frames: every input read once, every output written once; the TX
+    operator's complex MACs (8 operations each), the FIR's, the noise
+    scaling and the partial sums.  Box-Muller and Philox are not counted."""
+    length, d = spec.length, spec.frame_size
+    n_cta = -(-b // rows_per_cta)
+    n_bytes = (4 * b + 16 + 2 * spec.w_r.nbytes + 2 * spec.bias_r.nbytes
+               + 4 * b * d + 4 * 4 * b * length + 4 * n_cta * 10 * length)
+    flops = b * (8 * d * spec.sps + 2 * length + 16 * length
+                 + (8 * spec.fir_u * length if spec.do_fir else 0))
+    return n_bytes, flops
+
+
+def model_work(spec, b: int, n_params: int):
+    """(bytes, operations) of the fused DCCN gradient for b frames: the
+    raw planes, indices, affine and parameters read once, the gradients
+    written once; the five GEMMs (2 operations a MAC) and the head."""
+    s_, p_, f_, d_, n = (spec.nsymbol, spec.sps, spec.nfilter,
+                         spec.frame_size, spec.nbits)
+    c, ch, j = 2 ** n, 2 ** n + 2, 2 * n
+    n_bytes = (4 * 4 * b * s_ * p_ + 4 * b * d_ + 4 * 6 * s_ * p_
+               + 2 * 4 * n_params)
+    gemm = 2 * b * (2 * s_ * 2 * p_ * 2 * f_ + 3 * (s_ * 2 * f_) * (2 * d_))
+    head = b * d_ * (6 * c + 6 * ch * j + 8 * c + 10 * n)
+    return n_bytes, gemm + head
+
+
+def phase_synth(tfs, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 6: the synth kernel against its plain version."""
+    import torch
+    out = {}
+    seeds = torch.tensor([0x1234ABCD, 0x9E3779B9], dtype=torch.int64,
+                         device=dev)
+    for channel, nbits, b in SYNTH_CASES:
+        spec = synth_spec(channel, nbits)
+        snr = torch.full((b,), 5.0, device=dev)
+        std = tfs.noise_std(snr)
+        got = tfs.fused_synthesize_kernel(spec, seeds, std)
+        want = tfs.fused_synthesize_ref(spec, b, std, seeds=seeds)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"fused_synth {channel}: indices differ")
+        err = max(float((a - w).abs().max())
+                  for a, w in zip(got[1:5], want[1:5]))
+        if err > 1e-4:
+            raise AssertionError(f"fused_synth {channel}: planes differ by "
+                                 f"{err:.3g} > 1e-4")
+        cg = tfs._combine_stats(got[5].sum(0), b)
+        cw = tfs._combine_stats(want[5].sum(0), b)
+        for name, a, w in zip(("a", "c", "noise_power", "sig_pwr"), cg, cw):
+            scale = w.abs().amax(dim=-1, keepdim=True) if w.dim() else 0
+            if bool(((a - w).abs() > 1e-5 * (w.abs() + scale)).any()):
+                raise AssertionError(f"fused_synth {channel}: _combine_stats "
+                                     f"{name} differs beyond rtol 1e-5")
+        noise = torch.cat([got[3], got[4]])
+        var = float(noise.var() / std[0] ** 2)
+        bits = tfs._bits_from_idx(got[0], nbits).float().mean()
+        if abs(var - 1) > 0.01 or abs(float(bits) - 0.5) > 0.01:
+            raise AssertionError(f"fused_synth {channel}: noise var/std^2 "
+                                 f"{var:.4f}, bit mean {float(bits):.4f}")
+        line = {"channel": channel, "nbits": nbits, "frames": b,
+                "max_abs_err": err, "noise_var_over_std2": var,
+                "bit_mean": float(bits)}
+        if channel == "ETU":
+            k_ms = events_ms(lambda: tfs.fused_synthesize_kernel(
+                spec, seeds, std), 50)
+            p_ms = events_ms(lambda: tfs.fused_synthesize_ref(
+                spec, b, std, seeds=seeds), 50)
+            n_bytes, flops = synth_work(spec, b, tfs.ROWS_PER_CTA)
+            t_b, t_o = n_bytes / hbm_bps * 1e3, flops / f32_flops * 1e3
+            bound, by = max((t_b, "bytes"), (t_o, "operations"))
+            line.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=n_bytes,
+                        flops=flops, bound_ms=bound, bound_by=by)
+            out["line"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": None, "check": "pass"}
+            out.setdefault("planes", {})[1] = (b, snr, got)
+        if nbits == 4:
+            out.setdefault("planes", {})[4] = (b, snr, got)
+        log(f"fused_synthesize {channel} nbits {nbits}, {b} frames: kernel "
+            f"== plain version (indices equal, planes max |diff| {err:.3g}),"
+            f" noise var/std^2 {var:.4f}, bit mean {float(bits):.4f}")
+        print(json.dumps({"phase": 6, **line}), flush=True)
+    return out
+
+
+def plain_vs_autograd(tfm, rx, spec, params, args, x, bits) -> dict:
+    """The plain version against autograd of `DCCNReceiver` +
+    `cross_entropy` on the normalized input: asserted in float64 on the
+    host (1024 frames; no kink is that close to a float64 rounding), and
+    measured in float32 on the card at full size."""
+    import torch
+    from torch.func import functional_call
+    from dl_ofdm_tpu_torch.train.metrics import cross_entropy
+
+    def autograd(model, ps, xx, bb):
+        ps = {k: v.detach().requires_grad_() for k, v in ps.items()}
+        ce = cross_entropy(functional_call(model, ps, (xx,))[0], bb)
+        return ce.detach(), dict(zip(ps, torch.autograd.grad(
+            ce, list(ps.values()))))
+
+    out = {}
+    m = min(1024, args[1])
+    yr, yi, nr, ni = (t[:m].detach().cpu().double() for t in args[3:7])
+    c = args[7].cpu().double()
+    p64 = {k: v.detach().cpu().double() for k, v in params.items()}
+    gp, cep, _ = tfm.dccn_fused_grads_ref(spec, m, p64, yr, yi, nr, ni, c,
+                                          args[8][:m].cpu())
+    rx64 = type(rx)(nbits=rx.nbits, nfft=64, cp_len=16, nfilter=64,
+                    frame_size=320).double()
+    x64 = torch.stack([yr * c[0] + nr * c[1] - c[2],
+                       yi * c[3] + ni * c[4] - c[5]], -1)
+    ce, ga = autograd(rx64, p64, x64.reshape(m, 7, 80, 2), bits[:m].cpu())
+    out["plain_vs_autograd_f64_err"] = check_grads(
+        "plain version vs autograd (float64)", gp, ga, 1e-4)
+    torch.testing.assert_close(cep, ce, rtol=1e-9, atol=0)
+    gp32 = tfm.dccn_fused_grads_ref(*args)[0]
+    ce32, ga32 = autograd(rx, params, x, bits)
+    out["plain_vs_autograd_f32_rel_err"] = max(
+        float((gp32[k] - ga32[k]).abs().max() / ga32[k].abs().max())
+        for k in ga32)
+    return out
+
+
+def library_step(params, x, bits):
+    """Autograd forward and backward of the plain model with library
+    products only: fft_like as one complex64 matmul, the Dense layers as
+    `F.linear` (cuBLAS), the head and the CE in torch."""
+    import torch
+    import torch.nn.functional as F
+    from dl_ofdm_tpu_torch.ops.norms import leaky_relu
+    from dl_ofdm_tpu_torch.train.metrics import cross_entropy
+    ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+    b = x.shape[0]
+    w = torch.complex(ps["fft_like.wr"], ps["fft_like.wi"])
+    f = torch.view_as_complex(x.contiguous()) @ w
+    f = torch.view_as_real(f + torch.complex(ps["fft_like.br"],
+                                             ps["fft_like.bi"]))
+    e = F.linear(f.reshape(b, -1), ps["Dense_extract.weight"],
+                 ps["Dense_extract.bias"]).reshape(b, -1, 2)
+    h = leaky_relu(F.linear(e, ps["Dense_conv1x1.weight"],
+                            ps["Dense_conv1x1.bias"]))
+    h = leaky_relu(F.linear(torch.cat([h, e], -1), ps["Dense_llr.weight"],
+                            ps["Dense_llr.bias"]))
+    loss = cross_entropy(h.reshape(b, e.shape[1], -1, 2), bits)
+    return dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
+
+
+def check_grads(name, got, want, tol):
+    """Per leaf max |got - want| <= tol * max |want|; returns the largest
+    absolute difference."""
+    worst = 0.0
+    for k, w in want.items():
+        diff = float((got[k] - w).abs().max())
+        if diff > tol * float(w.abs().max()):
+            raise AssertionError(f"{name}: {k} differs by {diff:.3g} > "
+                                 f"{tol} x {float(w.abs().max()):.3g}")
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_model(tfm, tfs, planes, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 7: the model kernel against its plain version."""
+    import torch
+    from torch.func import functional_call
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    from dl_ofdm_tpu_torch.train.metrics import cross_entropy
+    result = {}
+    for nbits in (1, 4):
+        b, _, (idx, yr, yi, nr, ni, stats) = planes[nbits]
+        _, c, _, _ = tfs._combine_stats(stats.sum(0), b)
+        rx = DCCNReceiver(nbits=nbits, nfft=64, cp_len=16, nfilter=64,
+                          frame_size=320).to(dev)
+        rx.reset_parameters(torch.Generator(device=dev).manual_seed(nbits))
+        params = {k: v.detach() for k, v in rx.state_dict().items()}
+        xr = yr * c[0] + nr * c[1] - c[2]
+        xi = yi * c[3] + ni * c[4] - c[5]
+        x = torch.stack([xr, xi], -1).reshape(b, 7, 80, 2)
+        bits = tfs._bits_from_idx(idx, nbits)
+        with torch.no_grad():
+            logits, _ = functional_call(rx, params, (x,))
+        ambiguous = int(((logits[..., 1] - logits[..., 0]).abs()
+                         < 1e-5).sum())
+        for dtype in ("float32", "bfloat16"):
+            spec = tfm.ModelSpec(nsymbol=7, sps=80, nfilter=64,
+                                 frame_size=320, nbits=nbits,
+                                 matmul_dtype=dtype)
+            args = (spec, b, params, yr, yi, nr, ni, c, idx)
+            gk, cek, confk, ek = tfm.dccn_fused_grads_kernel(*args,
+                                                             return_e=True)
+            _, _, ep = tfm.dccn_forward_ref(spec, params, yr, yi, nr, ni, c)
+            _, cep, confp = tfm.dccn_fused_grads_ref(*args)
+            # the backward from the kernel's forward output: an f32 sum in
+            # another order moves a pre-activation by ~1e-6, and where one
+            # lies that close to a leaky kink the two sides would take
+            # different slopes (phase 8 shows the size of that)
+            gp, _, _ = tfm.dccn_fused_grads_ref(*args, e=ek)
+            torch.cuda.synchronize()
+            tol = 1e-4 if dtype == "float32" else 1e-3
+            e_err = float((ek - ep).abs().max() / ep.abs().max())
+            if e_err > tol:
+                raise AssertionError(f"dccn_fused_grads nbits {nbits} "
+                                     f"{dtype}: forward e off by {e_err:.3g}"
+                                     f" of its max")
+            err = check_grads(f"dccn_fused_grads nbits {nbits} {dtype}",
+                              gk, gp, tol)
+            torch.testing.assert_close(cek, cep, rtol=1e-5, atol=0)
+            dconf = int((confk - confp).abs().max())
+            if int(confk[1].sum()) != int(confp[1].sum()) \
+                    or dconf > ambiguous:
+                raise AssertionError(f"counts differ: {confk} vs {confp} "
+                                     f"({ambiguous} bits with |t| < 1e-5)")
+            line = {"phase": 7, "nbits": nbits, "frames": b, "dtype": dtype,
+                    "max_abs_err": err, "e_rel_err": e_err, "ce": float(cek),
+                    "count_diff": dconf, "ambiguous_bits": ambiguous}
+            if nbits == 1 and dtype == "float32":
+                line.update(plain_vs_autograd(tfm, rx, spec, params, args, x,
+                                              bits))
+            if nbits == 1:
+                k_ms = events_ms(lambda: tfm.dccn_fused_grads_kernel(*args))
+                p_ms = events_ms(lambda: tfm.dccn_fused_grads_ref(*args))
+                l_ms = events_ms(lambda: library_step(params, x, bits))
+                n_params = sum(v.numel() for v in params.values())
+                n_bytes, flops = model_work(spec, b, n_params)
+                t_b = n_bytes / hbm_bps * 1e3
+                t_f32, t_bf16 = flops / f32_flops * 1e3, flops / BF16_FLOPS * 1e3
+                t_o = t_bf16 if dtype == "bfloat16" else t_f32
+                bound, by = max((t_b, "bytes"), (t_o, "operations"))
+                line.update(kernel_ms=k_ms, plain_ms=p_ms,
+                            library_ms=l_ms, library="autograd fwd+bwd of "
+                            "the plain model (cuBLAS, complex64 matmul)",
+                            bytes=n_bytes, flops=flops, bytes_ms=t_b,
+                            f32_ops_ms=t_f32, bf16_tensor_core_ops_ms=t_bf16,
+                            bound_ms=bound, bound_by=by)
+                if dtype == "bfloat16":    # the main path's GEMM inputs
+                    result = {"max_abs_err": err, "ms": k_ms,
+                              "plain_ms": p_ms, "bound_ms": bound,
+                              "bound_by": by, "library_ms": l_ms,
+                              "check": "pass"}
+            log(f"dccn_fused_grads nbits {nbits} {dtype}, {b} frames: "
+                f"kernel == plain version (forward e {e_err:.3g} of max, "
+                f"max |dg| {err:.3g}, counts off by {dconf}, {ambiguous} "
+                f"ambiguous bits)")
+            print(json.dumps(line), flush=True)
+    return result
+
+
+def phase_train(tfm, tfs, dev) -> dict:
+    """Phase 8: the training step at full width; returns the kernels'
+    launch counts on the fused main path."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops.pallas_kernels import complex_dense_kernel
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg = OFDMConfig(nbits=1)
+    steps = 20
+    trainers = {}
+    for frames in TRAIN_FRAMES:
+        tr = Trainer(cfg, TrainConfig(batch_size=frames * 7), channel="ETU")
+        assert tr.batch_frames == frames and tr._use_fused_model
+        trainers[frames] = tr
+    torch.cuda.synchronize()
+    tfs.fused_synthesize_kernel.launches = 0
+    tfm.dccn_fused_grads_kernel.launches = 0
+    complex_dense_kernel.launches = 0
+    fused_steps = 0
+    rows = []
+    for frames, tr in trainers.items():
+        gen = torch.Generator(device=dev).manual_seed(frames)
+        state = tr.init_state(gen)
+        snr = torch.full((frames,), 5.0, device=dev)
+        state, aux = tr.train_step(state, gen, snr)      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            state, aux = tr.train_step(state, gen, snr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        fused_steps += steps + 1
+        if not torch.isfinite(aux["loss"]):
+            raise AssertionError(f"train step at {frames} frames: loss "
+                                 f"{float(aux['loss'])}")
+        rows.append({"frames": frames, "route": "fused", "ms_per_step": ms,
+                     "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3),
+                     "ce": float(aux["ce"]), "ber": float(aux["ber"])})
+    torch.cuda.synchronize()
+    launches = {"fused_synthesize": tfs.fused_synthesize_kernel.launches,
+                "dccn_fused_grads": tfm.dccn_fused_grads_kernel.launches}
+    log(f"training main path: {fused_steps} fused steps, launches "
+        f"{launches}, complex_dense {complex_dense_kernel.launches}")
+    for name, n in launches.items():
+        if n != fused_steps:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{fused_steps} fused steps")
+    for frames, tr in trainers.items():        # the autograd route
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state = tr.init_state(gen)
+        snr = torch.full((frames,), 5.0, device=dev)
+        state, _ = tr.train_step(state, gen, snr, fused=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            state, aux = tr.train_step(state, gen, snr, fused=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        rows.append({"frames": frames, "route": "autograd",
+                     "ms_per_step": ms,
+                     "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3)})
+    frames = TRAIN_FRAMES[1]
+    snr = torch.full((frames,), 5.0, device=dev)
+    for row in rows:
+        log(f"train step {row['route']:8s} {row['frames']:6d} frames: "
+            f"{row['ms_per_step']:.3f} ms/step, "
+            f"{row['iq_samples_per_s']:.4g} IQ samples/s")
+        print(json.dumps({"phase": 8, **row}), flush=True)
+
+    # the two routes from one init on the same batches (float32 products)
+    tr = Trainer(cfg, TrainConfig(batch_size=frames * 7,
+                                  fused_model_matmul_dtype="float32"),
+                 channel="ETU")
+    finals, first = {}, {}
+    for fused in (True, False):
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(5))
+        gen = torch.Generator(device=dev).manual_seed(6)
+        for i in range(steps):
+            state, aux = tr.train_step(state, gen, snr, fused=fused,
+                                       return_grads=i == 0)
+            if i == 0:
+                first[fused] = aux["grads"]
+        finals[fused] = state.params
+    torch.cuda.synchronize()
+    # two float32 routes with sums in other orders: a pre-activation within
+    # ~1e-6 of a leaky kink takes the other slope, which moves a leaf by up
+    # to ~1e-2 of its max at this batch size (phase 7's float32 plain
+    # version against autograd: 1.3e-2 on an H100); a wrong layout, sign or
+    # scale moves it by O(1)
+    gerr = check_grads("step-1 gradients, fused vs autograd route",
+                       first[True], first[False], 5e-2)
+    pdiff = max(float((finals[True][k] - finals[False][k]).abs().max())
+                for k in finals[True])
+    log(f"fused vs autograd route: step-1 gradients max |dg| {gerr:.3g}; "
+        f"after {steps} steps max |dparam| {pdiff:.3g}")
+    print(json.dumps({"phase": 8, "routes_step1_grad_err": gerr,
+                      "routes_param_diff_after_20": pdiff}), flush=True)
+
+    # fit from init_state on AWGN at 5 dB
+    tr = Trainer(cfg, TrainConfig(snr=5.0), channel="AWGN")
+    t = time.time()
+    _, info = tr.fit(max_epochs=3, log_fn=lambda m: log(f"  fit {m}"))
+    hist = info["history"]
+    print(json.dumps({"phase": 8, "fit_seconds": time.time() - t,
+                      "fit_history": hist}), flush=True)
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise AssertionError(f"fit did not lower the train CE: {hist}")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -143,6 +565,8 @@ def main() -> None:
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
     from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
     from dl_ofdm_tpu_torch.ops import cuda_build
+    from dl_ofdm_tpu_torch.ops import fused_model as tfm
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
     from dl_ofdm_tpu_torch.ops.pallas_kernels import (complex_dense,
                                                       complex_dense_kernel,
                                                       complex_dense_ref)
@@ -275,15 +699,31 @@ def main() -> None:
             results["point_batch"][2] / results["point_batch"][1]}),
         flush=True)
 
-    # -- 5. kernels line and the result ---------------------------------------
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "complex_dense", "route": "cuda",
         "source": "dl_ofdm_tpu_torch/csrc/complex_dense.cu",
         "replaces": "dl_ofdm_tpu/ops/pallas_kernels.py:80",
         "launches": launches["interleaved"], "max_abs_err": err,
         "ms": ms["kernel"], "plain_ms": ms["plain"],
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": ms["library"], "check": "pass"}]}), flush=True)
+        "library_ms": ms["library"], "check": "pass"}]
+
+    # -- 6-8. the training path ---------------------------------------------
+    synth = phase_synth(tfs, dev, hbm_bps, f32_flops)
+    model = phase_model(tfm, tfs, synth["planes"], dev, hbm_bps, f32_flops)
+    launches_train = phase_train(tfm, tfs, dev)
+    kernels += [
+        {"name": "fused_synthesize", "route": "cuda",
+         "source": "dl_ofdm_tpu_torch/csrc/fused_synth.cu",
+         "replaces": "dl_ofdm_tpu/ops/fused_synth.py:763",
+         "launches": launches_train["fused_synthesize"], **synth["line"]},
+        {"name": "dccn_fused_grads", "route": "cuda",
+         "source": "dl_ofdm_tpu_torch/csrc/fused_model.cu",
+         "replaces": "dl_ofdm_tpu/ops/fused_model.py:417",
+         "launches": launches_train["dccn_fused_grads"], **model}]
+
+    # -- 5. kernels line and the result ---------------------------------------
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

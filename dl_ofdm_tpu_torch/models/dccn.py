@@ -12,14 +12,16 @@ Port of `DCCNReceiver` from `dl_ofdm_tpu/models/dccn.py` (reference
     -> per-bit 2-class logits [B, frame_size, nbits, 2].
 
 Submodules keep the flax scope names, so `train.checkpoint.params_from_flax`
-maps a flax param tree onto `state_dict()` keys one to one.
+maps a flax param tree onto `state_dict()` keys one to one.  Parameters start
+as flax's do: `lecun_normal` kernels (a normal truncated at 2 std, fan-in
+variance) and zero biases, for the `nn.Linear` layers as for `ComplexDense`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from dl_ofdm_tpu_torch.ops.complex_ops import ComplexDense
+from dl_ofdm_tpu_torch.ops.complex_ops import ComplexDense, lecun_normal_
 from dl_ofdm_tpu_torch.ops.norms import leaky_relu
 
 
@@ -36,6 +38,16 @@ class DCCNReceiver(nn.Module):
         self.Dense_extract = nn.Linear(nsymbol * nfilter * 2, frame_size * 2)
         self.Dense_conv1x1 = nn.Linear(2, 2 ** nbits)
         self.Dense_llr = nn.Linear(2 ** nbits + 2, nbits * 2)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Draw every parameter afresh with flax's initializers (kernels
+        `lecun_normal`, biases zero) from `generator`, which lies on the
+        parameters' device (the default generator when None)."""
+        self.fft_like.reset_parameters(generator)
+        for layer in (self.Dense_extract, self.Dense_conv1x1, self.Dense_llr):
+            lecun_normal_(layer.weight, layer.in_features, generator)
+            nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor):
         """x [B, S, K+CP, 2] -> (logits [B, frame_size, nbits, 2],

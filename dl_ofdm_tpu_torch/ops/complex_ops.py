@@ -24,6 +24,16 @@ from torch import nn
 from dl_ofdm_tpu_torch.ops.pallas_kernels import complex_dense
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's `lecun_normal` in place: a normal truncated at 2 std, scaled
+    so that the truncated draw has variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
 class ComplexDense(nn.Module):
     """[..., K, 2] -> [..., F, 2].  Parameters keep the flax names and
     layouts: wr, wi [K, F]; br, bi [F] ('true') or b [F] ('reference')."""
@@ -36,12 +46,16 @@ class ComplexDense(nn.Module):
         self.recombine = recombine
         self.wr = nn.Parameter(torch.empty(in_features, features))
         self.wi = nn.Parameter(torch.empty(in_features, features))
-        # flax's lecun_normal: a normal truncated at 2 std, fan-in variance
-        std = (1.0 / in_features) ** 0.5 / 0.87962566
-        for w in (self.wr, self.wi):
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
         for name in ("br", "bi") if recombine == "true" else ("b",):
             self.register_parameter(name, nn.Parameter(torch.zeros(features)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's init: `lecun_normal` wr and wi, zero biases."""
+        for w in (self.wr, self.wi):
+            lecun_normal_(w, self.wr.shape[0], generator)
+        for name in ("br", "bi") if self.recombine == "true" else ("b",):
+            nn.init.zeros_(getattr(self, name))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != 2:

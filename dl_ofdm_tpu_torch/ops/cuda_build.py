@@ -29,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source under csrc/
-SOURCES = {"complex_dense": "complex_dense.cu"}
+SOURCES = {"complex_dense": "complex_dense.cu",
+           "fused_synth": "fused_synth.cu",
+           "fused_model": "fused_model.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name

@@ -1,7 +1,8 @@
-"""The port stands alone: no file of `dl_ofdm_tpu_torch/` or `chip_smoke.py`
-imports JAX or the JAX package, kernels build without PyTorch's extension
-machinery, and `chip_smoke.py` refuses to run without a CUDA device or
-outside a checkout.  (An AST scan, not `sys.modules`: this image imports
+"""The port stands alone: no file of `dl_ofdm_tpu_torch/`, no
+`scripts/torch_*.py` and not `chip_smoke.py` imports JAX or the JAX
+package, kernels build without PyTorch's extension machinery, and
+`chip_smoke.py` refuses to run without a CUDA device or outside a
+checkout.  (An AST scan, not `sys.modules`: this image imports
 JAX at interpreter start.)"""
 import ast
 import glob
@@ -15,6 +16,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "dl_ofdm_tpu_torch", "**",
                                            "*.py"), recursive=True))
+# the port's scripts run on the GPU machine too
+SCRIPT_FILES = sorted(glob.glob(os.path.join(ROOT, "scripts", "torch_*.py")))
 
 
 def _imported_modules(path):
@@ -35,7 +38,7 @@ def test_port_files_found():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
+    "path", PORT_FILES + SCRIPT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
     for mod in _imported_modules(path):

@@ -54,8 +54,30 @@ Phases, each printed with its elapsed seconds:
     kinks, see phase 7's float32 autograd number); the largest
     parameter difference after 20 steps is printed.  Last, `fit` for three
     epochs on AWGN at 5 dB from `init_state`: the train CE must fall.
- 5. (printed last) one `{"kernels": [...]}` line with all three kernels,
-    then as the last line `{"ok": true, "device": {...}}`.
+ 9. the synth kernel's Doppler rows and true channel against its plain
+    version on the same Philox words: mixRayleigh mobile nbits 1 at 9,362
+    frames, ETU mobile nbits 4 at 1,001, mixAll mobile nbits 2 at 997 with
+    `want_h`.  Indices equal; planes and h within 5e-6; noise var/std^2
+    and the bits' mean as in phase 6.  Times: kernel, plain version, bound
+    (from this run's count of Doppler rows).
+10. long frames: a fused train step at `OFDMConfig(nfft=128)` (sps 160,
+    1,120 samples a frame) and `nfft=128, longcp=False` (sps 137, 959),
+    ETU, 2,340 frames, and the synth kernel against its plain version on
+    one batch of each (planes within 1e-4, as phase 6).
+11. the mobile training path, `bench.py`'s configuration on mixRayleigh
+    with Jakes Doppler (`mobile=True`): the fused step at the four batch
+    sizes (ms/step, IQ samples/s, each kernel's launches: counts set to 0
+    just before, read just after, equal to the steps), `fit` for three
+    epochs (the train CE must fall), and a 41-point `ber_sweep` of the
+    trained model on ETU mobile (plain Doppler path on the card; 2,000
+    frames a point): finite BERs that fall with SNR.
+12. the PRNG probe (`python -m dl_ofdm_tpu_torch.ops.prng_probe`): the
+    kernel's words equal `philox_words` bit for bit and pass the checks of
+    `scripts/prng_quality_check.py`; its time, the plain version's, bound.
+ 5. (printed last) one `{"kernels": [...]}` line with all four kernels
+    (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
+    `complex_dense` from phase 4a, of `philox_probe` from phase 12), then
+    as the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
@@ -168,6 +190,9 @@ def check_curve(name, ber, ref, ref_name):
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 TRAIN_FRAMES = (2340, 9362, 18724, 37449)   # bench.py's batch grid // 7
 SYNTH_CASES = (("ETU", 1, 9362), ("AWGN", 4, 1001), ("mixAll", 2, 997))
+# (channel, nbits, frames, want_h) of phase 9, all mobile
+MOBILE_CASES = (("mixRayleigh", 1, 9362, False), ("ETU", 4, 1001, False),
+                ("mixAll", 2, 997, True))
 
 
 def events_ms(fn, iters: int = 50) -> float:
@@ -186,29 +211,37 @@ def events_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def synth_spec(channel: str, nbits: int):
-    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
-    from dl_ofdm_tpu_torch.config import OFDMConfig
-    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
-    from dl_ofdm_tpu_torch.ops.fused_synth import build_synth_spec
-    plan = build_plan(OFDMConfig(nbits=nbits))
-    ch = RayleighChannel(channel=channel, nfft=64,
-                         sample_rate=plan.sample_rate)
-    return build_synth_spec(plan, [None if ch._passthrough[i] else p
-                                   for i, p in enumerate(ch.profiles)], nbits)
+def synth_spec(channel: str, nbits: int, mobile: bool = False, **cfg):
+    """The fused synthesize spec a `Trainer` builds for this channel."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    return Trainer(OFDMConfig(nbits=nbits, **cfg), TrainConfig(),
+                   channel=channel, mobile=mobile,
+                   device="cpu")._fused_synth_spec
 
 
-def synth_work(spec, b: int, rows_per_cta: int):
+def synth_work(spec, b: int, rows_per_cta: int, n_dop: int = 0,
+               want_h: bool = False):
     """(bytes, float32 operations) the synthesize function needs for b
-    frames: every input read once, every output written once; the TX
-    operator's complex MACs (8 operations each), the FIR's, the noise
-    scaling and the partial sums.  Box-Muller and Philox are not counted."""
+    frames, n_dop of them Doppler rows: every input read once, every output
+    written once; the TX operator's complex MACs (8 operations each), the
+    FIR's, the noise scaling and the partial sums; on a Doppler row each
+    sinusoid's argument and sum (4 operations, the cosine counted as one)
+    and the per-symbol kernels; with want_h the true channel's complex
+    MACs.  Box-Muller and Philox are not counted."""
     length, d = spec.length, spec.frame_size
+    s1 = spec.nsymbol if spec.mobile else 1
     n_cta = -(-b // rows_per_cta)
     n_bytes = (4 * b + 16 + 2 * spec.w_r.nbytes + 2 * spec.bias_r.nbytes
-               + 4 * b * d + 4 * 4 * b * length + 4 * n_cta * 10 * length)
+               + 4 * b * d + 4 * 4 * b * length + 4 * n_cta * 10 * length
+               + (8 * b * s1 * spec.nfft if want_h else 0))
     flops = b * (8 * d * spec.sps + 2 * length + 16 * length
                  + (8 * spec.fir_u * length if spec.do_fir else 0))
+    if spec.mobile:
+        flops += n_dop * spec.nsymbol * spec.taps * (
+            2 * 48 * 5 + 6 * spec.fir_u)
+    if want_h:
+        flops += b * s1 * spec.nfft * spec.taps * 8
     return n_bytes, flops
 
 
@@ -267,7 +300,7 @@ def phase_synth(tfs, dev, hbm_bps, f32_flops) -> dict:
                 spec, seeds, std), 50)
             p_ms = events_ms(lambda: tfs.fused_synthesize_ref(
                 spec, b, std, seeds=seeds), 50)
-            n_bytes, flops = synth_work(spec, b, tfs.ROWS_PER_CTA)
+            n_bytes, flops = synth_work(spec, b, tfs.rows_per_block(spec))
             t_b, t_o = n_bytes / hbm_bps * 1e3, flops / f32_flops * 1e3
             bound, by = max((t_b, "bytes"), (t_o, "operations"))
             line.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=n_bytes,
@@ -556,6 +589,243 @@ def phase_train(tfm, tfs, dev) -> dict:
     return launches
 
 
+def bound_of(n_bytes, flops, hbm_bps, f32_flops):
+    t_b, t_o = n_bytes / hbm_bps * 1e3, flops / f32_flops * 1e3
+    return max((t_b, "bytes"), (t_o, "operations"))
+
+
+def compare_synth(tfs, spec, seeds, std, want_h, tol, name):
+    """The synth kernel against its plain version on the same words:
+    indices equal, planes (and h) within `tol`.  Returns (kernel output,
+    max |diff|, noise var/std^2, bit mean)."""
+    import torch
+    b = std.shape[0]
+    got = tfs.fused_synthesize_kernel(spec, seeds, std, want_h=want_h)
+    want = tfs.fused_synthesize_ref(spec, b, std, seeds=seeds, want_h=want_h)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"fused_synth {name}: indices differ")
+    pairs = list(zip(got[1:5], want[1:5])) + list(zip(got[6:], want[6:]))
+    for a, w in pairs:
+        if a.shape != w.shape:
+            raise AssertionError(f"fused_synth {name}: shape {tuple(a.shape)}"
+                                 f" != {tuple(w.shape)}")
+    err = max(float((a - w).abs().max()) for a, w in pairs)
+    if err > tol:
+        raise AssertionError(f"fused_synth {name}: planes differ by "
+                             f"{err:.3g} > {tol}")
+    torch.testing.assert_close(got[5].sum(0), want[5][0], atol=1e-3,
+                               rtol=1e-5)
+    noise = torch.cat([got[3], got[4]])
+    var = float(noise.var() / std[0] ** 2)
+    bits = float(tfs._bits_from_idx(got[0], spec.nbits).float().mean())
+    if abs(var - 1) > 0.01 or abs(bits - 0.5) > 0.01:
+        raise AssertionError(f"fused_synth {name}: noise var/std^2 "
+                             f"{var:.4f}, bit mean {bits:.4f}")
+    return got, err, var, bits
+
+
+def phase_synth_mobile(tfs, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 9: the synth kernel's Doppler rows and true channel against
+    its plain version."""
+    import torch
+    out = {}
+    seeds = torch.tensor([0x2468ACE0, 0x0BADF00D], dtype=torch.int64,
+                         device=dev)
+    for channel, nbits, b, want_h in MOBILE_CASES:
+        spec = synth_spec(channel, nbits, mobile=True)
+        std = tfs.noise_std(torch.full((b,), 5.0, device=dev))
+        name = f"{channel} mobile nbits {nbits}{' want_h' if want_h else ''}"
+        _, err, var, bits = compare_synth(tfs, spec, seeds, std, want_h,
+                                          5e-6, name)
+        n_dop = int(tfs.doppler_rows(spec, b).sum())
+        line = {"phase": 9, "channel": channel, "nbits": nbits, "frames": b,
+                "doppler_rows": n_dop, "want_h": want_h, "max_abs_err": err,
+                "noise_var_over_std2": var, "bit_mean": bits}
+        if channel == "mixRayleigh":
+            k_ms = events_ms(lambda: tfs.fused_synthesize_kernel(
+                spec, seeds, std), 50)
+            p_ms = events_ms(lambda: tfs.fused_synthesize_ref(
+                spec, b, std, seeds=seeds), 10)
+            n_bytes, flops = synth_work(spec, b, tfs.rows_per_block(spec),
+                                        n_dop)
+            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+            line.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=n_bytes,
+                        flops=flops, bound_ms=bound, bound_by=by)
+            out["line"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": None, "check": "pass"}
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
+        log(f"fused_synthesize {name}, {b} frames ({n_dop} Doppler rows): "
+            f"kernel == plain version (indices equal, planes"
+            f"{' and h' if want_h else ''} max |diff| {err:.3g}), noise "
+            f"var/std^2 {var:.4f}, bit mean {bits:.4f}")
+        print(json.dumps(line), flush=True)
+    return out
+
+
+def phase_long_frames(tfs, tfm, dev) -> None:
+    """Phase 10: frames longer than 640 samples (nfft 128, both CP
+    lengths) on the fused route."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    frames = TRAIN_FRAMES[0]
+    for longcp in (True, False):
+        cfg = OFDMConfig(nbits=1, nfft=128, longcp=longcp)
+        tr = Trainer(cfg, TrainConfig(batch_size=frames * 7), channel="ETU")
+        spec = tr._fused_synth_spec
+        if not tr._use_fused_model:
+            raise AssertionError(f"nfft 128 longcp={longcp}: no fused route")
+        seeds = torch.tensor([77, 2**32 - 77], dtype=torch.int64, device=dev)
+        std = tfs.noise_std(torch.full((frames,), 5.0, device=dev))
+        _, err, _, _ = compare_synth(tfs, spec, seeds, std, False, 1e-4,
+                                     f"nfft 128 longcp={longcp}")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        state = tr.init_state(gen)
+        snr = torch.full((frames,), 5.0, device=dev)
+        n_s = tfs.fused_synthesize_kernel.launches
+        n_m = tfm.dccn_fused_grads_kernel.launches
+        state, aux = tr.train_step(state, gen, snr)      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            state, aux = tr.train_step(state, gen, snr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / 5
+        launches = (tfs.fused_synthesize_kernel.launches - n_s,
+                    tfm.dccn_fused_grads_kernel.launches - n_m)
+        if launches != (6, 6) or not torch.isfinite(aux["loss"]):
+            raise AssertionError(f"nfft 128 longcp={longcp}: launches "
+                                 f"{launches}, loss {float(aux['loss'])}")
+        line = {"phase": 10, "nfft": 128, "longcp": longcp, "sps": spec.sps,
+                "frame_samples": spec.length, "fir_u": spec.fir_u,
+                "rows_per_block": tfs.rows_per_block(spec),
+                "frames": frames, "max_abs_err": err, "ms_per_step": ms,
+                "ce": float(aux["ce"])}
+        log(f"nfft 128 longcp={longcp}: sps {spec.sps}, {spec.length} "
+            f"samples, kernel == plain version (max |diff| {err:.3g}); "
+            f"fused step {ms:.3f} ms at {frames} frames, CE "
+            f"{float(aux['ce']):.4f}")
+        print(json.dumps(line), flush=True)
+
+
+def phase_train_mobile(tfm, tfs, dev) -> dict:
+    """Phase 11: the mobile training path; returns the kernels' launch
+    counts on it."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.ops.pallas_kernels import complex_dense_kernel
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg = OFDMConfig(nbits=1)
+    steps = 20
+    trainers = {}
+    for frames in TRAIN_FRAMES:
+        tr = Trainer(cfg, TrainConfig(batch_size=frames * 7),
+                     channel="mixRayleigh", mobile=True)
+        assert tr.batch_frames == frames and tr._use_fused_model
+        assert tr._fused_synth_spec.mobile
+        trainers[frames] = tr
+    torch.cuda.synchronize()
+    tfs.fused_synthesize_kernel.launches = 0
+    tfm.dccn_fused_grads_kernel.launches = 0
+    complex_dense_kernel.launches = 0
+    fused_steps = 0
+    for frames, tr in trainers.items():
+        gen = torch.Generator(device=dev).manual_seed(frames + 1)
+        state = tr.init_state(gen)
+        snr = torch.full((frames,), 5.0, device=dev)
+        state, aux = tr.train_step(state, gen, snr)      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            state, aux = tr.train_step(state, gen, snr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        fused_steps += steps + 1
+        if not torch.isfinite(aux["loss"]):
+            raise AssertionError(f"mobile train step at {frames} frames: "
+                                 f"loss {float(aux['loss'])}")
+        row = {"phase": 11, "frames": frames, "route": "fused",
+               "channel": "mixRayleigh mobile", "ms_per_step": ms,
+               "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3),
+               "ce": float(aux["ce"]), "ber": float(aux["ber"])}
+        log(f"mobile train step fused {frames:6d} frames: {ms:.3f} ms/step, "
+            f"{row['iq_samples_per_s']:.4g} IQ samples/s")
+        print(json.dumps(row), flush=True)
+    torch.cuda.synchronize()
+    launches = {"fused_synthesize": tfs.fused_synthesize_kernel.launches,
+                "dccn_fused_grads": tfm.dccn_fused_grads_kernel.launches}
+    log(f"mobile training path: {fused_steps} fused steps, launches "
+        f"{launches}, complex_dense {complex_dense_kernel.launches}")
+    for name, n in launches.items():
+        if n != fused_steps:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{fused_steps} mobile fused steps")
+
+    tr = Trainer(cfg, TrainConfig(snr=5.0), channel="mixRayleigh",
+                 mobile=True)
+    t = time.time()
+    state, info = tr.fit(max_epochs=3, log_fn=lambda m: log(f"  fit {m}"))
+    hist = info["history"]
+    print(json.dumps({"phase": 11, "fit_seconds": time.time() - t,
+                      "fit_history": hist}), flush=True)
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise AssertionError(f"mobile fit did not lower the train CE: {hist}")
+
+    sweeper = Trainer(cfg, TrainConfig(), channel="ETU", mobile=True)
+    sweeper.model.load_state_dict(state.params)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    torch.cuda.synchronize()
+    t = time.time()
+    res = ber_sweep(sweeper, gen, snrs=SNRS, frames_per_point=2000,
+                    batch_frames=2000, log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    ber = np.asarray(res.ber)
+    i10 = SNRS.index(10)
+    print(json.dumps({"phase": 11, "sweep": "ETU mobile interleaved",
+                      "seconds": wall, "ber": ber.tolist()}), flush=True)
+    log(f"ETU mobile sweep, 41 points x 2,000 frames: {wall:.3f} s; BER "
+        f"{ber[0]:.4g} at -10 dB, {ber[i10]:.4g} at 10 dB, {ber[-1]:.4g} "
+        f"at 30 dB")
+    if not (np.all(np.isfinite(ber)) and ber[0] > ber[i10] >= ber[-1]):
+        raise AssertionError(f"ETU mobile sweep BERs do not fall with SNR: "
+                             f"{ber.tolist()}")
+    return launches
+
+
+def phase_probe(dev, hbm_bps) -> dict:
+    """Phase 12: the PRNG probe on the card."""
+    import torch
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    from dl_ofdm_tpu_torch.ops import prng_probe as pp
+    torch.cuda.synchronize()
+    pp.probe_words_kernel.launches = 0
+    q = pp.main()
+    launches = pp.probe_words_kernel.launches
+    if launches < 1:
+        raise AssertionError("the probe's entry point did not launch its "
+                             "kernel")
+    seeds = torch.tensor(pp.SEEDS, dtype=torch.int64, device=dev)
+    k_ms = events_ms(lambda: pp.probe_words_kernel(seeds), 50)
+    p_ms = events_ms(lambda: pp.probe_words_ref(seeds), 10)
+    n_bytes = 16 + 4 * pp.N_STREAMS * pp.ROWS * pp.N_WORDS
+    bound = n_bytes / hbm_bps * 1e3
+    words = pp.probe_words_kernel(seeds).to(torch.int64) & 0xFFFFFFFF
+    err = float((words - pp.probe_words_ref(seeds)).abs().max())
+    line = {"phase": 12, **q, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bytes": n_bytes, "bound_ms": bound, "bound_by": "bytes",
+            "launches": launches}
+    print(json.dumps(line), flush=True)
+    log(f"philox_probe: words == philox_words, checks pass; kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms")
+    return {"launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "check": "pass"}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -712,15 +982,31 @@ def main() -> None:
     synth = phase_synth(tfs, dev, hbm_bps, f32_flops)
     model = phase_model(tfm, tfs, synth["planes"], dev, hbm_bps, f32_flops)
     launches_train = phase_train(tfm, tfs, dev)
+
+    # -- 9-12. the mobile training path, long frames, the probe ---------------
+    mobile = phase_synth_mobile(tfs, dev, hbm_bps, f32_flops)
+    phase_long_frames(tfs, tfm, dev)
+    launches_mobile = phase_train_mobile(tfm, tfs, dev)
+    probe = phase_probe(dev, hbm_bps)
+    static = {f"static_{k}": v for k, v in synth["line"].items()
+              if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels += [
-        {"name": "fused_synthesize", "route": "cuda",
+        {"name": "fused_synth", "route": "cuda",
          "source": "dl_ofdm_tpu_torch/csrc/fused_synth.cu",
          "replaces": "dl_ofdm_tpu/ops/fused_synth.py:763",
-         "launches": launches_train["fused_synthesize"], **synth["line"]},
+         "launches": launches_mobile["fused_synthesize"], **mobile["line"],
+         "max_abs_err": max(mobile["max_abs_err"],
+                            synth["line"]["max_abs_err"]),
+         "launches_static_path": launches_train["fused_synthesize"],
+         **static},
         {"name": "dccn_fused_grads", "route": "cuda",
          "source": "dl_ofdm_tpu_torch/csrc/fused_model.cu",
          "replaces": "dl_ofdm_tpu/ops/fused_model.py:417",
-         "launches": launches_train["dccn_fused_grads"], **model}]
+         "launches": launches_mobile["dccn_fused_grads"], **model,
+         "launches_static_path": launches_train["dccn_fused_grads"]},
+        {"name": "philox_probe", "route": "cuda",
+         "source": "dl_ofdm_tpu_torch/csrc/philox_probe.cu",
+         "replaces": "scripts/prng_quality_check.py:42", **probe}]
 
     # -- 5. kernels line and the result ---------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)

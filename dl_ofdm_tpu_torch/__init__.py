@@ -11,9 +11,11 @@ counterpart is found at the same path.  Complex data stays IQ-last
 `cuda` unless the caller passes `device="cpu"`; with no card and no
 `device="cpu"` they raise (`resolve_device`).
 
-This slice is the BER-sweep (serving) path: TX, the AWGN/static-Rayleigh
-channel, the DCCN receiver with its `fft_like` complex dense layer on a
-hand-written Hopper kernel (`csrc/complex_dense.cu`), and `ber_sweep`.
+Ported so far: the BER-sweep (serving) path with the `fft_like` complex
+dense layer on a hand-written Hopper kernel (`csrc/complex_dense.cu`); the
+training step of the basic `Trainer` on AWGN, static and Jakes-Doppler
+(mobile) fading, with its two kernels (`csrc/fused_synth.cu`,
+`csrc/fused_model.cu`); and the PRNG probe (`csrc/philox_probe.cu`).
 """
 from __future__ import annotations
 

@@ -1,12 +1,21 @@
-"""Batched Rayleigh multipath fading channel (static profiles).
+"""Batched Rayleigh multipath fading channel.
 
-Port of `dl_ofdm_tpu/channel/rayleigh.py:56-160` (reference
-`dev/py/radio.py:277-510`) for static fading: per-frame iid tap gains
-zck ~ CN(0,1), FIR kernel gt = (zck * ch_coeff) @ alpha_matrix, 'same'
-convolution over the whole frame and H = fft(gt, nfft) broadcast over
-symbols.  'mixRayleigh' cycles frames over {flat, etu, eva, epa} and
-'mixAll' over {awgn, flat, etu, eva, epa}; AWGN rows pass through with a
-unit tap.  Jakes Doppler (`mobile=True`) is a later slice of the port.
+Port of `dl_ofdm_tpu/channel/rayleigh.py:58-206` (reference
+`dev/py/radio.py:277-510`):
+
+  * static fading: per-frame iid tap gains zck ~ CN(0,1), FIR kernel
+    gt = (zck * ch_coeff) @ alpha_matrix, 'same' convolution over the whole
+    frame, H = fft(gt, nfft) broadcast over symbols;
+  * Doppler fading (`mobile=True`): Jakes sum-of-sinusoids gains per OFDM
+    symbol, a per-symbol FIR with n_taps look-back (`fir_per_symbol_iq`)
+    and a per-symbol H;
+  * mixes: 'mixRayleigh' cycles frames over {flat, etu, eva, epa} and
+    'mixAll' over {awgn, flat, etu, eva, epa}; AWGN rows pass through with
+    a unit tap; with `mix` on, Doppler applies to every 3rd (resp. 4th)
+    frame.
+
+The JAX package's opt-in `_partition_doppler` path (`rayleigh.py:172-196`,
+off by default, same `y`) is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import numpy as np
 import torch
 
 from dl_ofdm_tpu_torch.channel import fir
+from dl_ofdm_tpu_torch.channel.doppler import (jakes_gains_from_phases,
+                                               jakes_phases)
 from dl_ofdm_tpu_torch.channel.profiles import TapProfile, get_profile
 from dl_ofdm_tpu_torch.ops import cfloat
 
@@ -39,14 +50,12 @@ class RayleighChannel:
 
     def __init__(self, channel: str = "etu", nfft: int = 64,
                  sample_rate: float = 0.96e6, mobile: bool = False,
-                 weighting: str = "reference"):
-        if mobile:
-            raise NotImplementedError(
-                "Jakes Doppler (mobile=True) is not ported yet: ROADMAP.md "
-                "Queue A item 4 (channel/doppler.py and fir_per_symbol_iq)")
+                 mix: bool = False, weighting: str = "reference"):
         self.channel = channel.lower()
         self.nfft = nfft
         self.sample_rate = sample_rate
+        self.mobile = mobile
+        self.mix = mix
 
         if self.channel == "mixrayleigh":
             names: Sequence[str] = ("flat", "etu", "eva", "epa")
@@ -70,6 +79,11 @@ class RayleighChannel:
              for p in self.profiles]).astype(np.float32)  # [P, taps, fir]
         self._offset_np = np.asarray([p.same_offset for p in self.profiles],
                                      dtype=np.int32)
+        fd = [p.fd_mobile if mobile else 0.0 for p in self.profiles]
+        self._fd_np = np.asarray(fd, dtype=np.float32)
+        # does any frame ever take the Doppler path?
+        self.has_doppler = mobile and any(f > 0.1 for f in fd) and \
+            (mix or len(self.profiles) == 1)
 
     def _frame_profiles(self, n_frames: int) -> np.ndarray:
         p = len(self.profiles)
@@ -77,19 +91,40 @@ class RayleighChannel:
             return np.zeros(n_frames, dtype=np.int32)
         return (np.arange(n_frames) % p).astype(np.int32)
 
+    def _frame_doppler_mask(self, n_frames: int,
+                            prof_idx: np.ndarray) -> np.ndarray:
+        """Which frames take the Doppler path (static bool mask)."""
+        if not self.mobile:
+            return np.zeros(n_frames, dtype=bool)
+        fd = self._fd_np[prof_idx]
+        if self.channel == "mixrayleigh":
+            sel = (np.arange(n_frames) % 3 == 0) & self.mix
+        elif self.channel == "mixall":
+            sel = (np.arange(n_frames) % 4 == 0) & self.mix
+        else:
+            sel = np.ones(n_frames, dtype=bool)
+        return sel & (fd > 0.1)
+
     def __call__(self, tx: torch.Tensor,
                  generator: torch.Generator | None = None,
-                 zck: torch.Tensor | None = None) -> ChannelOut:
+                 zck: torch.Tensor | None = None,
+                 theta: tuple[torch.Tensor, torch.Tensor] | None = None
+                 ) -> ChannelOut:
         """Args:
           tx: [B, S, n_sc, 2] float32 time-domain IQ frames.
-          generator: draws the tap gains (the device's default when None).
+          generator: draws the static tap gains, then (where a frame takes
+            the Doppler path) the Jakes phases; the device's default when
+            None.
           zck: [B, max_taps, 2] CN(0,1) tap gains to use instead of drawing
             them (tests feed both packages the same draws).  AWGN rows
             still take the unit tap.
+          theta: (th_re, th_im) [B, SS, max_taps] Jakes phases to use
+            instead of drawing them.
         """
         b, s, n_sc, _ = tx.shape
         dev = tx.device
         prof_idx = self._frame_profiles(b)
+        dop_mask = self._frame_doppler_mask(b, prof_idx)
         coeff = torch.from_numpy(self._coeff_np[prof_idx]).to(dev)
         alpha = torch.from_numpy(self._alpha_np[prof_idx]).to(dev)
         offsets = self._offset_np[prof_idx]
@@ -106,7 +141,26 @@ class RayleighChannel:
 
         # per-frame FIR kernel: gt = (zck * coeff) @ alpha
         gt = torch.einsum("btc,btf->bfc", zck * coeff[..., None], alpha)
-        h_freq = cfloat.dft_iq(gt, self.nfft)[:, None].expand(
-            b, s, self.nfft, 2)
-        y = fir.fir_same_iq(tx.reshape(b, s * n_sc, 2), gt, offsets)
-        return ChannelOut(y=y.reshape(b, s, n_sc, 2), h_freq=h_freq)
+        y = fir.fir_same_iq(tx.reshape(b, s * n_sc, 2), gt,
+                            offsets).reshape(b, s, n_sc, 2)
+        if not (self.has_doppler and dop_mask.any()):
+            h_freq = cfloat.dft_iq(gt, self.nfft)[:, None].expand(
+                b, s, self.nfft, 2)
+            return ChannelOut(y=y, h_freq=h_freq)
+
+        # Doppler: per-symbol gains on the masked frames, static elsewhere
+        if theta is None:
+            theta = jakes_phases(b, self.max_taps, generator, dev)
+        fd = torch.from_numpy(self._fd_np[prof_idx]).to(dev)
+        t = torch.arange(s, dtype=torch.float32, device=dev) * (
+            n_sc / self.sample_rate)
+        zck_dop = jakes_gains_from_phases(*theta, fd, t, self.max_taps)
+        if passthrough.any():
+            zck_dop = torch.where(mask[..., None], unit, zck_dop)
+        dop = torch.from_numpy(dop_mask).to(dev)[:, None, None, None]
+        zck_s = torch.where(dop, zck_dop, zck[:, None])
+        gt_s = torch.einsum("bstc,btf->bsfc", zck_s * coeff[:, None, :, None],
+                            alpha)                      # [B, S, max_fir, 2]
+        h_freq = cfloat.dft_iq(gt_s, self.nfft)         # [B, S, nfft, 2]
+        y_dop = fir.fir_per_symbol_iq(tx, gt_s, self.max_taps, offsets)
+        return ChannelOut(y=torch.where(dop, y_dop, y), h_freq=h_freq)

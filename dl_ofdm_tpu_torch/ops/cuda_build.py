@@ -8,14 +8,15 @@ through `torch.utils.cpp_extension`, so a build takes seconds and needs no
 `ninja` and no lock file.
 
 Libraries land in `dl_ofdm_tpu_torch/_build/` (listed in `.gitignore`),
-named by a hash of the source and the flags, so an edited source builds
-anew.  Each is compiled to a temporary name and moved into place with
+named by a hash of the source, every header under `csrc/` and the flags, so
+an edited source or header builds anew.  Each is compiled to a temporary name and moved into place with
 `os.replace`: a killed build leaves no half-written library.  Nothing is
 built on import; the first kernel launch, or `build_all()`, builds.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -31,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> its source under csrc/
 SOURCES = {"complex_dense": "complex_dense.cu",
            "fused_synth": "fused_synth.cu",
-           "fused_model": "fused_model.cu"}
+           "fused_model": "fused_model.cu",
+           "philox_probe": "philox_probe.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name
@@ -56,10 +58,20 @@ def find_nvcc() -> str:
         "PATH; the port's kernels are compiled at first use")
 
 
+def source_digest(name: str) -> str:
+    """Hash of library `name`'s source, of every header under `csrc/` (by
+    name and bytes) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+                     + glob.glob(os.path.join(CSRC_DIR, "*.h")))
+    for path in [os.path.join(CSRC_DIR, SOURCES[name])] + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{source_digest(name)}.so")
 
 
 def build_all(names=None) -> None:

@@ -111,13 +111,17 @@ def make_optimizer(tc: TrainConfig) -> Adam:
 
 
 class Trainer:
-    """The basic DCCN receiver on an AWGN or static fading channel.
+    """The basic DCCN receiver on an AWGN, static fading or Jakes-Doppler
+    (`mobile=True`) channel.
 
-    `device` defaults to `cuda` and raises where there is none
-    (`resolve_device`); the model's parameters live there."""
+    `mix` applies Doppler to the designated frames of a mixed channel
+    (every 3rd of mixRayleigh, every 4th of mixAll); mobile implies it
+    unless given (`loop.py:78-82`).  `device` defaults to `cuda` and raises
+    where there is none (`resolve_device`); the model's parameters live
+    there."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig, channel: str = "AWGN",
-                 mobile: bool = False,
+                 mobile: bool = False, mix: bool | None = None,
                  device: str | torch.device | None = None):
         if cfg.compute_dtype is not None:
             raise NotImplementedError(
@@ -132,7 +136,8 @@ class Trainer:
             nsymbol=cfg.nsymbol, keep_cp=cfg.cp).to(self.device)
         self.channel = RayleighChannel(
             channel=channel, nfft=cfg.nfft,
-            sample_rate=self.plan.sample_rate, mobile=mobile)
+            sample_rate=self.plan.sample_rate, mobile=mobile,
+            mix=mobile if mix is None else mix)
         self.optimizer = make_optimizer(tc)
         self.batch_frames = max(1, tc.batch_size // cfg.nsymbol)
         # the fused chain's eligibility (`loop.py:128-170`), apart from the
@@ -146,8 +151,17 @@ class Trainer:
                 and sym_counts.min() > 0:
             profs = [None if ch._passthrough[i] else p
                      for i, p in enumerate(ch.profiles)]
-            self._fused_synth_spec = build_synth_spec(self.plan, profs,
-                                                      cfg.nbits)
+            fd = dop_cycle = None
+            if ch.has_doppler:
+                # frame i takes the Jakes path iff _frame_doppler_mask says
+                # so; the pattern repeats every lcm(P, 3|4) frames
+                per = {"mixrayleigh": 3, "mixall": 4}.get(ch.channel, 1)
+                cyc_len = math.lcm(len(ch.profiles), per)
+                dop_cycle = ch._frame_doppler_mask(
+                    cyc_len, ch._frame_profiles(cyc_len))
+                fd = ch._fd_np
+            self._fused_synth_spec = build_synth_spec(
+                self.plan, profs, cfg.nbits, fd=fd, dop_cycle=dop_cycle)
         self._fused_model_spec = None
         if (self._fused_synth_spec is not None
                 and self.model.fft_like.recombine == "true"

@@ -6,11 +6,13 @@ SNR 5 dB, `TrainConfig(batch_size=frames * 7)`) through
 after 3 warm-up steps, and prints one JSON object: wall ms per step,
 device-busy ms per step (the union of kernel intervals), the idle share,
 and the kernels with the most device time.  `--route autograd` profiles
-the autograd route instead of the fused one; `--trace PATH` also writes
-the Chrome trace there.
+the autograd route instead of the fused one; `--channel` and `--mobile`
+pick the channel (`--channel mixRayleigh --mobile` is the mobile cell);
+`--trace PATH` also writes the Chrome trace there.
 
     python scripts/torch_train_trace.py [--frames 9362] [--steps 20]
-        [--route fused|autograd] [--trace trace.json]
+        [--route fused|autograd] [--channel ETU] [--mobile]
+        [--trace trace.json]
 
 Needs a CUDA device; imports no JAX.
 """
@@ -37,6 +39,9 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--route", choices=("fused", "autograd"),
                     default="fused")
+    ap.add_argument("--channel", default="ETU")
+    ap.add_argument("--mobile", action="store_true",
+                    help="Jakes Doppler on the channel's Doppler frames")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -44,7 +49,7 @@ def main():
         raise SystemExit("torch_train_trace.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=args.frames * 7),
-                 channel="ETU")
+                 channel=args.channel, mobile=args.mobile)
     fused = args.route == "fused"
     gen = torch.Generator(device=tr.device).manual_seed(0)
     state = tr.init_state(gen)
@@ -71,6 +76,7 @@ def main():
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "route": args.route,
+        "channel": args.channel, "mobile": args.mobile,
         "frames": tr.batch_frames, "steps": args.steps,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if kernels else None,

@@ -95,11 +95,6 @@ def test_static_profile_tap_power_in_distribution(rng):
     assert abs(p_t / p_j - 1) < 0.08
 
 
-def test_mobile_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TChannel("etu", mobile=True)
-
-
 def test_awgn_channel_on_injected_unit_noise(rng):
     x = _tx(rng)
     snr = np.linspace(-5, 25, 8).astype(np.float32)

@@ -58,35 +58,47 @@ def test_library_is_built_under_build_dir(cuda, name):
     assert os.path.isfile(path)
 
 
-def _synth_spec(channel, nbits):
-    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
-    from dl_ofdm_tpu_torch.config import OFDMConfig
-    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
-    from dl_ofdm_tpu_torch.ops.fused_synth import build_synth_spec
-    plan = build_plan(OFDMConfig(nbits=nbits))
-    ch = RayleighChannel(channel=channel, nfft=64,
-                         sample_rate=plan.sample_rate)
-    return build_synth_spec(plan, [None if ch._passthrough[i] else p
-                                   for i, p in enumerate(ch.profiles)], nbits)
+def _synth_spec(channel, nbits, mobile=False, **cfg):
+    """The spec a `Trainer` builds (its fused gate), Doppler rows included
+    where `mobile`."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    return Trainer(OFDMConfig(nbits=nbits, **cfg), TrainConfig(),
+                   channel=channel, mobile=mobile,
+                   device="cpu")._fused_synth_spec
 
 
-@pytest.mark.parametrize("channel,nbits,n", [("ETU", 1, 37), ("AWGN", 4, 5),
-                                             ("mixAll", 2, 33)])
-def test_fused_synth_kernel_matches_plain_version(cuda, channel, nbits, n):
-    """Same Philox words: indices equal, planes to 1e-4 (log and sincos
-    differ by a few ulp between the kernel and torch), sums to 1e-5."""
+@pytest.mark.parametrize("channel,nbits,n,mobile,want_h,cfg", [
+    ("ETU", 1, 37, False, False, {}), ("AWGN", 4, 5, False, False, {}),
+    ("mixAll", 2, 33, False, False, {}), ("mixAll", 2, 33, False, True, {}),
+    ("AWGN", 1, 9, False, True, {}),
+    ("mixRayleigh", 1, 50, True, False, {}),
+    ("mixRayleigh", 1, 50, True, True, {}),
+    ("ETU", 4, 19, True, False, {}), ("ETU", 4, 19, True, True, {}),
+    ("mixAll", 2, 41, True, False, {}), ("mixAll", 2, 41, True, True, {}),
+    ("ETU", 1, 21, False, False, {"nfft": 128}),
+    ("mixRayleigh", 2, 21, True, True, {"nfft": 128, "longcp": False})])
+def test_fused_synth_kernel_matches_plain_version(cuda, channel, nbits, n,
+                                                  mobile, want_h, cfg):
+    """Same Philox words: indices equal, planes and h to 1e-4 (log, sincos
+    and cos differ by a few ulp between the kernel and torch), sums to
+    1e-5."""
     from dl_ofdm_tpu_torch.ops import fused_synth as tfs
-    spec = _synth_spec(channel, nbits)
+    spec = _synth_spec(channel, nbits, mobile, **cfg)
+    assert spec.mobile == mobile
     seeds = torch.tensor([123, 2**32 - 5], dtype=torch.int64, device=cuda)
     std = tfs.noise_std(torch.linspace(0, 20, n, device=cuda))
     before = tfs.fused_synthesize_kernel.launches
-    got = tfs.fused_synthesize_kernel(spec, seeds, std)
-    want = tfs.fused_synthesize_ref(spec, n, std, seeds=seeds)
+    got = tfs.fused_synthesize_kernel(spec, seeds, std, want_h=want_h)
+    want = tfs.fused_synthesize_ref(spec, n, std, seeds=seeds, want_h=want_h)
     torch.cuda.synchronize()
     assert tfs.fused_synthesize_kernel.launches == before + 1
-    assert got[5].shape == (-(-n // tfs.ROWS_PER_CTA), 10, spec.length)
+    rows = tfs.rows_per_block(spec, want_h)
+    assert got[5].shape == (-(-n // rows), 10, spec.length)
+    assert len(got) == len(want) == 6 + want_h
     assert torch.equal(got[0], want[0])
-    for a, b in zip(got[1:5], want[1:5]):
+    for a, b in zip(got[1:5] + got[6:], want[1:5] + want[6:]):
+        assert a.shape == b.shape
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     torch.testing.assert_close(got[5].sum(0), want[5][0], atol=1e-3,
                                rtol=1e-5)
@@ -151,3 +163,55 @@ def test_train_step_fused_on_card(cuda):
     assert tfm.dccn_fused_grads_kernel.launches == n_m + 1
     assert state.step == 1 and torch.isfinite(aux["loss"])
     assert int(aux["conf"].sum()) == tr.batch_frames * 320
+
+
+@pytest.mark.parametrize("longcp", [True, False])
+def test_train_step_fused_at_nfft_128(cuda, longcp):
+    """Frames of 1,120 and 959 samples (sps 160 and 137) take the fused
+    route on the card, as the gate admits them."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=1, nfft=128, longcp=longcp),
+                 TrainConfig(batch_size=7 * 40), channel="mixRayleigh")
+    assert tr._use_fused_model
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = tr.init_state(g)
+    snr = torch.full((tr.batch_frames,), 5.0, device=cuda)
+    n_s = tfs.fused_synthesize_kernel.launches
+    for _ in range(2):
+        state, aux = tr.train_step(state, g, snr)
+    torch.cuda.synchronize()
+    assert tfs.fused_synthesize_kernel.launches == n_s + 2
+    assert state.step == 2 and torch.isfinite(aux["loss"])
+    assert int(aux["conf"].sum()) == tr.batch_frames * tr.plan.frame_size
+
+
+def test_train_step_fused_mobile_on_card(cuda):
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 120),
+                 channel="mixRayleigh", mobile=True)
+    assert tr._use_fused_model and tr._fused_synth_spec.mobile
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = tr.init_state(g)
+    snr = torch.full((tr.batch_frames,), 5.0, device=cuda)
+    n_s = tfs.fused_synthesize_kernel.launches
+    state, aux = tr.train_step(state, g, snr)
+    torch.cuda.synchronize()
+    assert tfs.fused_synthesize_kernel.launches == n_s + 1
+    assert torch.isfinite(aux["loss"])
+
+
+def test_philox_probe_kernel_matches_plain_version(cuda):
+    from dl_ofdm_tpu_torch.ops import prng_probe as pp
+    seeds = torch.tensor(pp.SEEDS, dtype=torch.int64, device=cuda)
+    before = pp.probe_words_kernel.launches
+    got = pp.probe_words_kernel(seeds, 3, 5, 36)
+    torch.cuda.synchronize()
+    assert pp.probe_words_kernel.launches == before + 1
+    want = pp.probe_words_ref(seeds, 3, 5, 36)
+    assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, want)
+    q = pp.main()
+    assert q["device"] == torch.cuda.get_device_name(0)

@@ -162,13 +162,3 @@ def test_draw_statistics():
     assert abs(var - 1.0) < 0.01
     bits = tfs._bits_from_idx(idx, 2).to(torch.float32)
     assert abs(float(bits.mean()) - 0.5) < 0.01
-
-
-def test_later_slice_paths_raise():
-    plan = build_plan(OFDMConfig(nbits=1))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tfs.build_synth_spec(plan, None, 1, fd=np.ones(1),
-                             dop_cycle=np.ones(4, bool))
-    _, ts = _specs("ETU", 1)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tfs.fused_synthesize(ts, 2, None, torch.zeros(2), want_h=True)

@@ -49,12 +49,15 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_are_plain_c_interface():
-    sources = glob.glob(os.path.join(ROOT, "dl_ofdm_tpu_torch", "csrc", "*"))
-    assert sources
-    for path in sources:
+    """Every source and header under csrc/ stays free of PyTorch's headers;
+    every source (`.cu`) has a plain C entry point."""
+    files = glob.glob(os.path.join(ROOT, "dl_ofdm_tpu_torch", "csrc", "*"))
+    assert any(p.endswith(".cu") for p in files)
+    for path in files:
         text = open(path).read()
         assert "torch/extension.h" not in text and "ATen" not in text
-        assert 'extern "C"' in text
+        if path.endswith(".cu"):
+            assert 'extern "C"' in text
 
 
 def test_nvcc_missing_raises_clearly(monkeypatch, tmp_path):
@@ -74,6 +77,25 @@ def test_library_named_by_source_hash():
     assert os.path.dirname(path) == cuda_build.BUILD_DIR
     assert os.path.basename(path).startswith("complex_dense-")
     assert path.endswith(".so")
+
+
+def test_library_digest_follows_headers(monkeypatch, tmp_path):
+    """A header's bytes are part of every library's name, so an edited
+    header builds anew."""
+    from dl_ofdm_tpu_torch.ops import cuda_build
+    for name in os.listdir(cuda_build.CSRC_DIR):
+        shutil.copy(os.path.join(cuda_build.CSRC_DIR, name), tmp_path)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    before = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    with open(tmp_path / "philox.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    for n in cuda_build.SOURCES:
+        assert before[n] != after[n], n
+    with open(tmp_path / "fused_synth.cu", "a") as f:
+        f.write("// edited\n")
+    assert cuda_build.library_path("fused_synth") != after["fused_synth"]
+    assert cuda_build.library_path("fused_model") == after["fused_model"]
 
 
 def _run_smoke(cwd):

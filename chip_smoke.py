@@ -74,10 +74,45 @@ Phases, each printed with its elapsed seconds:
 12. the PRNG probe (`python -m dl_ofdm_tpu_torch.ops.prng_probe`): the
     kernel's words equal `philox_words` bit for bit and pass the checks of
     `scripts/prng_quality_check.py`; its time, the plain version's, bound.
- 5. (printed last) one `{"kernels": [...]}` line with all four kernels
+13. `fir_shift_accum` against its plain version on the channel's own FIR
+    kernels: ETU (one offset) and mixRayleigh (four offsets, zero-padded
+    short kernels) at 30,000 and 73 frames of 560 samples; within 1e-6 of
+    max |y|, and `fir_same_iq` on the card (one kernel launch) against the
+    plain loop to the same bound.  Times at 30,000 frames: kernel, plain
+    version, one grouped `F.conv1d` (the library yardstick), bound.  Then
+    `complex_dense` at the equalizer's shapes (K = F = 64 on 30,000 x 7
+    and 73 x 7 rows) against its plain version (1e-5, as phase 3), with
+    its times at the serving shape.
+14. the nine committed equalizer arms (`runs/arms/MANIFEST.json`) served
+    as `runs/resweep_claims.py:65-91` sweeps them: `EqualizerTrainer` with
+    the AWGN base receiver grafted and the arm loaded, `ber_sweep` with
+    `point_batch=True`, 30,000 frames a point in one batch, EPA/EVA/ETU at
+    20 and 30 dB, generator seed 1919: 54 cells, each BER within
+    [0.8, 1.25] of `runs/p19_resweep_claims.json`; the phase's wall time
+    and its `fir_shift_accum` and `complex_dense` launches.
+15. the equalizer stage's training at full width (nfft 64, opt 12,
+    mixRayleigh, the QPSK base receiver grafted, a fresh equalizer):
+    `train_step_curriculum` at 73 and 9,362 frames on the plain data plane
+    and on `fused_curriculum` (one `fused_synth` launch a step), ms/step,
+    CE and `chan_mse`; after the steps every `receiver.*` parameter equals
+    the grafted one bit for bit and Adam holds moments for `Equalizer.*`
+    only.  Then `fit` for three epochs: finite, the last epoch's CE below
+    the first's.
+16. the mobile equalizer step (mixRayleigh with Jakes Doppler, opt 0,
+    8QAM, as the `Equalizer0_mixRayleigh_mobile` arm) on both data
+    planes: ms/step, launches.
+17. where the equalizer step's time goes, last because the profiler
+    slows the launches that follow it: phase 15's trainers on both data
+    planes, a warm-up step, then at 73 frames 20 steps timed and 20 under
+    `torch.profiler`, at 9,362 frames 5 and 5: ms/step, device-busy ms a
+    step (the union of kernel intervals), the idle share of that ms/step,
+    kernels a step, the host's waits on the device and copies a step, the
+    top kernels.
+ 5. (printed last) one `{"kernels": [...]}` line with all five kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
-    `complex_dense` from phase 4a, of `philox_probe` from phase 12), then
-    as the last line `{"ok": true, "device": {...}}`.
+    `complex_dense` from phase 4a (with its equalizer-path counts), of
+    `philox_probe` from phase 12, of `fir_shift_accum` from phases 14 and
+    15), then as the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
@@ -826,6 +861,464 @@ def phase_probe(dev, hbm_bps) -> dict:
             "library_ms": None, "check": "pass"}
 
 
+# (channel, frames) of phase 13: one offset (ETU), four offsets and
+# zero-padded short kernels (mixRayleigh); the sweep's batch and the
+# equalizer stage's reference batch
+FIR_CASES = (("ETU", 30000), ("mixRayleigh", 30000), ("ETU", 73),
+             ("mixRayleigh", 73))
+FIR_LEN = 560                      # samples of a frame (7 x 80)
+# phase 14: the gate cells of `runs/resweep_claims.py`, its seed and the
+# band each cell's BER must keep against `runs/p19_resweep_claims.json`
+GATE_CHANS = ("EPA", "EVA", "ETU")
+GATE_PTS = (20, 30)
+GATE_SEED = 1919
+GATE_BAND = (0.8, 1.25)
+GATE_FRAMES = 30000                # frames a point, in one batch
+EQ_FRAMES = (73, 9362)             # equalizer stage: reference batch, bench
+EQ_STEPS = 20                      # timed steps a size and route (phase 15)
+EQ_PROFILE_STEPS = {73: 20, 9362: 5}   # phase 17's steps, by frames
+EQ_MOBILE_STEPS = 10               # timed steps a route (phase 16)
+
+
+def fir_planes(channel: str, b: int, gen):
+    """What `fir_same_iq` hands the kernel for `b` frames of `channel`:
+    the pre-aligned planes of random frames and the channel's own FIR
+    kernels (CN(0,1) tap gains through the profiles' alpha matrices), with
+    the x and h it made them from and the rows' offsets."""
+    import torch
+    import torch.nn.functional as F
+    from dl_ofdm_tpu_torch.channel import fir
+    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
+    ch = RayleighChannel(channel)
+    dev = gen.device
+    prof = ch._frame_profiles(b)
+    offsets = ch._offset_np[prof]
+    coeff = torch.from_numpy(ch._coeff_np[prof]).to(dev)
+    alpha = torch.from_numpy(ch._alpha_np[prof]).to(dev)
+    zck = torch.randn(b, ch.max_taps, 2, device=dev, generator=gen) / 2 ** 0.5
+    h = torch.einsum("btc,btf->bfc", zck * coeff[..., None], alpha)
+    x = torch.randn(b, FIR_LEN, 2, device=dev, generator=gen)
+    f = h.shape[1]
+    xa = [fir._prealign_plane(F.pad(x[..., i], (f - 1, f - 1)), offsets,
+                              FIR_LEN + f - 1).contiguous() for i in (0, 1)]
+    hp = [h[..., i].contiguous() for i in (0, 1)]
+    return x, h, offsets, xa, hp
+
+
+def conv1d_fir(xa, hp):
+    """The same complex FIR as one grouped `F.conv1d` (a yardstick, not
+    the port): group b has channels (re, im) in and out, weight
+    [[hr, -hi], [hi, hr]] flipped along the taps."""
+    import torch
+    import torch.nn.functional as F
+    b = xa[0].shape[0]
+    x = torch.stack(xa, 1).reshape(1, 2 * b, -1)
+    hr, hi = hp
+    w = torch.stack([torch.stack([hr, -hi], 1), torch.stack([hi, hr], 1)],
+                    1).flip(-1).reshape(2 * b, 2, -1)
+    return lambda: F.conv1d(x, w, groups=b)
+
+
+def phase_fir(tpk, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 13: `fir_shift_accum` against its plain version, and
+    `fir_same_iq` on the card against the plain loop."""
+    import torch
+    from dl_ofdm_tpu_torch.channel import fir
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"max_abs_err": 0.0}
+    torch.cuda.synchronize()
+    tpk.fir_shift_accum_kernel.launches = 0
+    for channel, b in FIR_CASES:
+        x, h, offsets, xa, hp = fir_planes(channel, b, gen)
+        f = h.shape[1]
+        yr, yi = tpk.fir_shift_accum_kernel(*xa, *hp, FIR_LEN)
+        wr, wi = tpk.fir_shift_accum_ref(*xa, *hp, FIR_LEN)
+        y = fir.fir_same_iq(x, h, offsets)
+        torch.cuda.synchronize()
+        scale = float(torch.maximum(wr.abs().max(), wi.abs().max()))
+        err = max(float((yr - wr).abs().max()), float((yi - wi).abs().max()))
+        err_same = float((y - torch.stack([wr, wi], -1)).abs().max())
+        if err > 1e-6 * scale or err_same > 1e-6 * scale:
+            raise AssertionError(
+                f"fir_shift_accum {channel} {b}: kernel {err:.3g}, "
+                f"fir_same_iq {err_same:.3g} against 1e-6 x {scale:.3g}")
+        lib = conv1d_fir(xa, hp)
+        yc = lib()
+        err_lib = float((yc.reshape(b, 2, FIR_LEN).transpose(1, 2)
+                         - torch.stack([wr, wi], -1)).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        line = {"phase": 13, "channel": channel, "frames": b, "taps": f,
+                "offsets": sorted(set(int(o) for o in offsets)),
+                "max_abs_err": err, "fir_same_iq_err": err_same,
+                "max_abs_y": scale, "conv1d_err": err_lib}
+        if b == 30000:
+            runs = {"kernel": lambda: tpk.fir_shift_accum_kernel(
+                        *xa, *hp, FIR_LEN),
+                    "plain": lambda: tpk.fir_shift_accum_ref(
+                        *xa, *hp, FIR_LEN),
+                    "library": lib}
+            times = {n: [] for n in runs}
+            for n in ("plain", "kernel", "library", "library", "kernel",
+                      "plain"):
+                times[n].append(events_ms(runs[n],
+                                          10 if n == "plain" else 50))
+            ms = {n: sum(v) / len(v) for n, v in times.items()}
+            n_bytes = 4 * (2 * b * (FIR_LEN + f - 1) + 2 * b * f
+                           + 2 * b * FIR_LEN)
+            flops = 8 * b * FIR_LEN * f
+            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+            line.update(kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                        conv1d_ms=ms["library"], bytes=n_bytes, flops=flops,
+                        bound_ms=bound, bound_by=by)
+            if channel == "ETU":
+                out.update(ms=ms["kernel"], plain_ms=ms["plain"],
+                           library_ms=ms["library"], bound_ms=bound,
+                           bound_by=by)
+            log(f"fir_shift_accum {channel} {b} x {FIR_LEN}, {f} taps: "
+                f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.3f} ms, "
+                f"grouped conv1d {ms['library']:.4f} ms, bound {bound:.4f} "
+                f"ms ({by})")
+        log(f"fir_shift_accum {channel} {b}: kernel == plain version (max "
+            f"|diff| {err:.3g}, fir_same_iq {err_same:.3g}, max |y| "
+            f"{scale:.3g}); conv1d differs by {err_lib:.3g}")
+        print(json.dumps(line), flush=True)
+    torch.cuda.synchronize()
+    out["launches_compare"] = tpk.fir_shift_accum_kernel.launches
+    out["check"] = "pass"
+    return out
+
+
+def phase_cdense_eq(tpk, dev, hbm_bps, f32_flops) -> None:
+    """Phase 13, second part: `complex_dense` at the equalizer's shapes
+    (`ToFreq`, `CorrT`, `ToTime`: K = F = 64 on B x 7 rows, B = 30,000
+    when serving and 73 when training) against its plain version,
+    atol = rtol = 1e-5 as in phase 3; times at the serving shape."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(64)
+    for m in (30000 * 7, 73 * 7):
+        x = torch.randn(m, 64, 2, device=dev, generator=gen)
+        wr, wi = (torch.randn(64, 64, device=dev, generator=gen) / 8
+                  for _ in range(2))
+        with torch.no_grad():
+            y = tpk.complex_dense_kernel(x, wr, wi)
+            y_ref = tpk.complex_dense_ref(x, wr, wi)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+        line = {"phase": 13, "kernel": "complex_dense", "shape": [m, 64, 64],
+                "max_abs_err": float((y - y_ref).abs().max())}
+        if m > 10000:
+            x_c, w_c = torch.view_as_complex(x), torch.complex(wr, wi)
+            with torch.no_grad():
+                ms = {n: events_ms(fn, 50) for n, fn in (
+                    ("kernel", lambda: tpk.complex_dense_kernel(x, wr, wi)),
+                    ("plain", lambda: tpk.complex_dense_ref(x, wr, wi)),
+                    ("library", lambda: torch.matmul(x_c, w_c)))}
+            n_bytes = 4 * (2 * m * 64 + 2 * 64 * 64 + 2 * m * 64)
+            bound, by = bound_of(n_bytes, 8 * m * 64 * 64, hbm_bps,
+                                 f32_flops)
+            line.update(kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                        library_ms=ms["library"], bound_ms=bound,
+                        bound_by=by)
+        log(f"complex_dense [{m},64,2]x[64,64]: kernel == plain version, "
+            f"max |diff| {line['max_abs_err']:.3g}"
+            + (f"; kernel {line['kernel_ms']:.4f} ms, plain "
+               f"{line['plain_ms']:.4f}, complex64 matmul "
+               f"{line['library_ms']:.4f}, bound {line['bound_ms']:.4f} ms"
+               if "kernel_ms" in line else ""))
+        print(json.dumps(line), flush=True)
+
+
+def path_counts(tpk, tfs):
+    """The launch counts of every kernel on the equalizer stage's paths."""
+    return {"fir_shift_accum": tpk.fir_shift_accum_kernel.launches,
+            "complex_dense": tpk.complex_dense_kernel.launches,
+            "fused_synth": tfs.fused_synthesize_kernel.launches}
+
+
+def zero_counts(tpk, tfs) -> None:
+    import torch
+    torch.cuda.synchronize()
+    tpk.fir_shift_accum_kernel.launches = 0
+    tpk.complex_dense_kernel.launches = 0
+    tfs.fused_synthesize_kernel.launches = 0
+
+
+def phase_serve_arms(tpk, tfs, dev) -> dict:
+    """Phase 14: the nine committed equalizer arms on the gate cells, as
+    `runs/resweep_claims.py:65-91` sweeps them; returns the launches."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    arms = os.path.join(ROOT, "runs", "arms")
+    manifest = json.load(open(os.path.join(arms, "MANIFEST.json")))
+    claims = json.load(open(os.path.join(ROOT, "runs",
+                                         "p19_resweep_claims.json")))
+    eq_arms = sorted(k for k, v in manifest.items()
+                     if v["kind"] == "equalizer")
+    if len(eq_arms) != 9:
+        raise AssertionError(f"MANIFEST.json lists {len(eq_arms)} "
+                             "equalizer arms, not 9")
+    zero_counts(tpk, tfs)
+    t0 = time.time()
+    bad, cells = [], []
+    for name in eq_arms:
+        info = manifest[name]
+        nbits, mobile, opt = info["nbits"], info["mobile"], info["opt"]
+        snr = 5.0 * nbits
+        base = params_from_flax(load_params_npz(os.path.join(
+            arms, f"OFDM_Dense3_{nbits}mod_snr{int(snr)}_cpTrue.npz")))
+        params = params_from_flax(load_params_npz(os.path.join(
+            arms, name + ".npz")))
+        ref = claims["arms"][name]["cells"]
+        for chan in GATE_CHANS:
+            eq = EqualizerTrainer(
+                OFDMConfig(nbits=nbits), TrainConfig(
+                    snr=snr, batch_size=512, opt=opt),
+                channel=chan, mobile=mobile, pretrained_rx=base)
+            eq.model.load_state_dict(params, strict=True)
+            gen = torch.Generator(device=dev).manual_seed(GATE_SEED)
+            res = ber_sweep(eq, gen, snrs=GATE_PTS,
+                            frames_per_point=GATE_FRAMES,
+                            batch_frames=GATE_FRAMES, log_fn=lambda *a: None,
+                            point_batch=True)
+            for pt, ber in zip(GATE_PTS, res.ber):
+                want = ref[chan][str(pt)]
+                ratio = float(ber) / want
+                ok = GATE_BAND[0] <= ratio <= GATE_BAND[1]
+                cells.append({"arm": name, "channel": chan, "snr": pt,
+                              "ber": float(ber), "jax_ber": want,
+                              "ratio": ratio, "in_band": ok})
+                log(f"  {name} {chan}{' mobile' if mobile else ''} {pt} dB: "
+                    f"BER {float(ber):.6g}, JAX {want:.6g}, ratio "
+                    f"{ratio:.4f}{'' if ok else '  OUT OF BAND'}")
+                if not (ok and np.isfinite(ber)):
+                    bad.append((name, chan, pt, ratio))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = path_counts(tpk, tfs)
+    ratios = [c["ratio"] for c in cells]
+    print(json.dumps({"phase": 14, "cells": cells, "seconds": wall,
+                      "launches": launches}), flush=True)
+    log(f"served {len(eq_arms)} arms on {len(cells)} cells in {wall:.2f} s; "
+        f"ratio to JAX {min(ratios):.4f}..{max(ratios):.4f}; launches "
+        f"{launches}")
+    if len(cells) != 54:
+        raise AssertionError(f"{len(cells)} cells, not 54")
+    if bad:
+        raise AssertionError(f"cells outside {GATE_BAND}: {bad}")
+    for k in ("fir_shift_accum", "complex_dense"):
+        if launches[k] < 1:
+            raise AssertionError(f"serving the arms launched no {k}")
+    return launches
+
+
+def eq_trainer(nbits: int, opt: int, frames: int, mobile: bool = False):
+    """An `EqualizerTrainer` on mixRayleigh with the committed AWGN base
+    receiver of `nbits` grafted in, `frames` a step (the reference's
+    `batch_size` 512 is 73 frames, as 7 x 73 is)."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    snr = 5.0 * nbits
+    base = params_from_flax(load_params_npz(os.path.join(
+        ROOT, "runs", "arms",
+        f"OFDM_Dense3_{nbits}mod_snr{int(snr)}_cpTrue.npz")))
+    tr = EqualizerTrainer(
+        OFDMConfig(nbits=nbits), TrainConfig(
+            snr=snr, batch_size=7 * frames, opt=opt),
+        channel="mixRayleigh", mobile=mobile,
+        pretrained_rx=base)
+    assert tr.batch_frames == frames
+    return tr, base
+
+
+def time_eq_steps(tr, state, gen, steps: int):
+    """(state, aux, ms/step) of `steps` curriculum steps after one warm-up
+    step, host clock around work that ends in a synchronize."""
+    import torch
+    state, aux = tr.train_step_curriculum(state, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        state, aux = tr.train_step_curriculum(state, gen)
+    torch.cuda.synchronize()
+    return state, aux, (time.perf_counter() - t) * 1e3 / steps
+
+
+def busy_us(events) -> float:
+    """Length of the union of the device kernels' [start, end) intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def profile_eq_steps(tr, state, gen, steps: int) -> dict:
+    """`steps` curriculum steps under `torch.profiler`: the wall ms a step
+    with the profiler on, the device-busy ms a step (the union of kernel
+    intervals), kernels a step, the host's waits on the device and copies
+    a step, and the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            state, _ = tr.train_step_curriculum(state, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    busy_ms = busy_us(kernels) / 1e3 / steps
+    host = {n: sum(e.name == n for e in events) / steps
+            for n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpyAsync")}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"profiled_wall_ms_per_step": wall_ms,
+            "busy_ms_per_step": busy_ms,
+            "kernels_per_step": len(kernels) / steps,
+            "host_calls_per_step": host,
+            "top_kernels_us_per_step": [
+                [n[:60], us / steps] for n, us in top]}
+
+
+def phase_train_eq(tpk, tfs, dev) -> dict:
+    """Phase 15: the equalizer stage's training at full width (nfft 64,
+    opt 12, mixRayleigh, QPSK base receiver grafted); returns the
+    launches."""
+    import torch
+    steps = EQ_STEPS
+    zero_counts(tpk, tfs)
+    fused_steps = 0
+    for frames in EQ_FRAMES:
+        tr, base = eq_trainer(2, 12, frames)
+        for route in ("plain", "fused"):
+            tr.fused_curriculum = route == "fused"
+            gen = torch.Generator(device=dev).manual_seed(frames)
+            state = tr.init_state(gen)
+            n_s = tfs.fused_synthesize_kernel.launches
+            state, aux, ms = time_eq_steps(tr, state, gen, steps)
+            n_s = tfs.fused_synthesize_kernel.launches - n_s
+            want = steps + 1 if route == "fused" else 0
+            fused_steps += want
+            if n_s != want:
+                raise AssertionError(f"{route} equalizer steps at {frames} "
+                                     f"frames launched fused_synth {n_s} "
+                                     f"times, not {want}")
+            for k, v in state.params.items():
+                if k.startswith("receiver.") and not torch.equal(
+                        v, base[k[len("receiver."):]].to(dev)):
+                    raise AssertionError(f"frozen {k} moved")
+            eq_keys = {k for k in state.params if k.startswith("Equalizer.")}
+            if set(state.opt_state["mu"]) != eq_keys:
+                raise AssertionError("Adam holds moments outside the "
+                                     "Equalizer scope")
+            vals = {k: float(aux[k]) for k in ("ce", "ber", "chan_mse",
+                                               "snr_mse")}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"equalizer step {route} {frames}: "
+                                     f"{vals}")
+            row = {"phase": 15, "frames": frames, "route": route,
+                   "ms_per_step": ms, "steps": steps + 1, **vals}
+            log(f"equalizer step {route:5s} {frames:5d} frames: {ms:.3f} "
+                f"ms/step; CE {vals['ce']:.4f}, chan_mse "
+                f"{vals['chan_mse']:.4f}; receiver bit-identical, Adam "
+                f"moments for {len(eq_keys)} Equalizer leaves only")
+            print(json.dumps(row), flush=True)
+    tr, _ = eq_trainer(2, 12, 73)
+    t = time.time()
+    _, info = tr.fit(max_epochs=3, log_fn=lambda m: log(f"  fit {m}"))
+    hist = info["history"]
+    torch.cuda.synchronize()
+    launches = path_counts(tpk, tfs)
+    print(json.dumps({"phase": 15, "fit_seconds": time.time() - t,
+                      "fit_history": hist, "launches": launches}),
+          flush=True)
+    if not all(np.isfinite([h["train_loss"], h["val_ber"]]).all()
+               for h in hist) \
+            or not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise AssertionError(f"equalizer fit: {hist}")
+    log(f"equalizer training path: launches {launches}")
+    if launches["fused_synth"] != fused_steps:
+        raise AssertionError(f"fused_synth launched "
+                             f"{launches['fused_synth']} times in "
+                             f"{fused_steps} fused equalizer steps")
+    for k in ("fir_shift_accum", "complex_dense"):
+        if launches[k] < 1:
+            raise AssertionError(f"equalizer training launched no {k}")
+    return launches
+
+
+def phase_train_eq_mobile(tpk, tfs, dev) -> None:
+    """Phase 16: the mobile equalizer step (mixRayleigh with Jakes
+    Doppler, opt 0, 8QAM as the `Equalizer0_mixRayleigh_mobile` arm) on
+    both data planes."""
+    import torch
+    steps = EQ_MOBILE_STEPS
+    tr, _ = eq_trainer(3, 0, 73, mobile=True)
+    if not tr._fused_synth_spec.mobile:
+        raise AssertionError("mobile equalizer trainer without Doppler rows")
+    for route in ("plain", "fused"):
+        tr.fused_curriculum = route == "fused"
+        gen = torch.Generator(device=dev).manual_seed(16)
+        state = tr.init_state(gen)
+        n = path_counts(tpk, tfs)
+        state, aux, ms = time_eq_steps(tr, state, gen, steps)
+        torch.cuda.synchronize()
+        d = {k: v - n[k] for k, v in path_counts(tpk, tfs).items()}
+        vals = {k: float(aux[k]) for k in ("ce", "chan_mse", "snr_mse")}
+        if d["fused_synth"] != (steps + 1 if route == "fused" else 0) \
+                or not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"mobile equalizer {route}: launches {d}, "
+                                 f"{vals}")
+        print(json.dumps({"phase": 16, "route": route, "frames": 73,
+                          "ms_per_step": ms, "launches": d, **vals}),
+              flush=True)
+        log(f"mobile equalizer step {route:5s} 73 frames: {ms:.3f} ms/step; "
+            f"CE {vals['ce']:.4f}, chan_mse {vals['chan_mse']:.4f}; "
+            f"launches {d}")
+
+
+def phase_profile_eq(dev) -> None:
+    """Phase 17: where the equalizer step's time goes (phase 15's trainers;
+    the idle share is of the unprofiled ms/step of the same trainer)."""
+    import torch
+    for frames in EQ_FRAMES:
+        tr, _ = eq_trainer(2, 12, frames)
+        steps = EQ_PROFILE_STEPS[frames]
+        for route in ("plain", "fused"):
+            tr.fused_curriculum = route == "fused"
+            gen = torch.Generator(device=dev).manual_seed(frames)
+            state = tr.init_state(gen)
+            state, _, ms = time_eq_steps(tr, state, gen, steps)
+            prof = profile_eq_steps(tr, state, gen, steps)
+            idle = 1 - prof["busy_ms_per_step"] / ms
+            print(json.dumps({"phase": 17, "frames": frames, "route": route,
+                              "ms_per_step": ms, "idle_share": idle,
+                              **prof}), flush=True)
+            log(f"equalizer step {route:5s} {frames:5d} frames: {ms:.3f} "
+                f"ms/step, {prof['busy_ms_per_step']:.3f} busy, idle "
+                f"{idle:.3f}; {prof['kernels_per_step']:.0f} kernels, host "
+                f"{prof['host_calls_per_step']} a step")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -837,6 +1330,7 @@ def main() -> None:
     from dl_ofdm_tpu_torch.ops import cuda_build
     from dl_ofdm_tpu_torch.ops import fused_model as tfm
     from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
     from dl_ofdm_tpu_torch.ops.pallas_kernels import (complex_dense,
                                                       complex_dense_kernel,
                                                       complex_dense_ref)
@@ -988,6 +1482,14 @@ def main() -> None:
     phase_long_frames(tfs, tfm, dev)
     launches_mobile = phase_train_mobile(tfm, tfs, dev)
     probe = phase_probe(dev, hbm_bps)
+
+    # -- 13-17. the FIR kernel, the equalizer stage -------------------------
+    fir_line = phase_fir(tpk, dev, hbm_bps, f32_flops)
+    phase_cdense_eq(tpk, dev, hbm_bps, f32_flops)
+    launches_serve = phase_serve_arms(tpk, tfs, dev)
+    launches_eq = phase_train_eq(tpk, tfs, dev)
+    phase_train_eq_mobile(tpk, tfs, dev)
+    phase_profile_eq(dev)
     static = {f"static_{k}": v for k, v in synth["line"].items()
               if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels += [
@@ -1006,7 +1508,18 @@ def main() -> None:
          "launches_static_path": launches_train["dccn_fused_grads"]},
         {"name": "philox_probe", "route": "cuda",
          "source": "dl_ofdm_tpu_torch/csrc/philox_probe.cu",
-         "replaces": "scripts/prng_quality_check.py:42", **probe}]
+         "replaces": "scripts/prng_quality_check.py:42", **probe},
+        {"name": "fir_shift_accum", "route": "cuda",
+         "source": "dl_ofdm_tpu_torch/csrc/fir_shift_accum.cu",
+         "replaces": "dl_ofdm_tpu/ops/pallas_kernels.py:171",
+         "launches": (launches_serve["fir_shift_accum"]
+                      + launches_eq["fir_shift_accum"]),
+         "launches_serving": launches_serve["fir_shift_accum"],
+         "launches_training": launches_eq["fir_shift_accum"],
+         **fir_line}]
+    kernels[0].update(
+        launches_equalizer_serving=launches_serve["complex_dense"],
+        launches_equalizer_training=launches_eq["complex_dense"])
 
     # -- 5. kernels line and the result ---------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)

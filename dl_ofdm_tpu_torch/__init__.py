@@ -15,7 +15,10 @@ Ported so far: the BER-sweep (serving) path with the `fft_like` complex
 dense layer on a hand-written Hopper kernel (`csrc/complex_dense.cu`); the
 training step of the basic `Trainer` on AWGN, static and Jakes-Doppler
 (mobile) fading, with its two kernels (`csrc/fused_synth.cu`,
-`csrc/fused_model.cu`); and the PRNG probe (`csrc/philox_probe.cu`).
+`csrc/fused_model.cu`); the PRNG probe (`csrc/philox_probe.cu`); and the
+equalizer transfer-learning stage (`models/equalizers.py`,
+`models/receiver.py`, `train/equalizer_loop.py`), whose static FIR runs on
+`csrc/fir_shift_accum.cu`.
 """
 from __future__ import annotations
 

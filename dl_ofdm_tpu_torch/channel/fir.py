@@ -4,7 +4,9 @@ Port of the IQ-last path of `dl_ofdm_tpu/channel/fir.py:123-172`
 (`_prealign_plane`, `fir_same_iq`): `np.convolve(x_b, h_b, 'same')` per row
 (reference `dev/py/radio.py:436`) as a static shift-and-accumulate over the
 F taps, with each row's 'same' offset applied by one slice per distinct
-offset; and of `fir_per_symbol_iq` (`fir.py:175-222`), the per-symbol
+offset (on a CUDA device the accumulation is one launch of the
+`fir_shift_accum` kernel, on the CPU the plain loop); and of
+`fir_per_symbol_iq` (`fir.py:175-222`), the per-symbol
 variant of the Doppler path.
 """
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dl_ofdm_tpu_torch.ops.pallas_kernels import fir_shift_accum
 
 
 def _prealign_plane(xp: torch.Tensor, offsets: np.ndarray,
@@ -33,6 +37,10 @@ def fir_same_iq(x: torch.Tensor, h: torch.Tensor,
                 offsets: np.ndarray) -> torch.Tensor:
     """np.convolve(x_b, h_b, 'same') per row, real-pair, static offsets.
 
+    The shift-and-accumulate over the taps runs as one `fir_shift_accum`
+    kernel launch where x lies on a CUDA device, as its plain loop where x
+    lies on the CPU.
+
     Args:
       x: [B, L, 2]; h: [B, F, 2] (zero-padded kernels of a common length);
       offsets: STATIC per-row (F_orig-1)//2 alignment (numpy int array).
@@ -45,16 +53,7 @@ def fir_same_iq(x: torch.Tensor, h: torch.Tensor,
     xi = F.pad(x[..., 1], (pad, pad))
     xar = _prealign_plane(xr, offsets, l + f - 1)        # [B, L+F-1]
     xai = _prealign_plane(xi, offsets, l + f - 1)
-    out_r = x.new_zeros(b, l)
-    out_i = x.new_zeros(b, l)
-    for k in range(f):
-        s = f - 1 - k
-        sr = xar[:, s:s + l]
-        si = xai[:, s:s + l]
-        hr = h[:, k, 0:1]
-        hi = h[:, k, 1:2]
-        out_r = out_r + sr * hr - si * hi
-        out_i = out_i + sr * hi + si * hr
+    out_r, out_i = fir_shift_accum(xar, xai, h[..., 0], h[..., 1], l)
     return torch.stack([out_r, out_i], dim=-1)
 
 

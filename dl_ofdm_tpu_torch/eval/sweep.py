@@ -11,6 +11,10 @@ per point, CSV columns SNR,BER,Loss):
   * `point_batch=True`: one SNR point per batch, normalization over the
     whole batch (the reference's protocol, `ofdmreceiver_np_mp.py:89`).
 
+`cross_channel_sweep` runs `ber_sweep` of one trained model on each test
+channel (reference cross-channel protocol, `ofdmreceiver_np_mp.py:62-104`:
+SNR -10:5:30, 30,000 frames a point, one CSV per channel).
+
 Counts accumulate on the device and are read once at the end of the sweep.
 The mesh (`mesh=`) variants are a later slice.
 """
@@ -18,12 +22,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterable
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
 from dl_ofdm_tpu_torch.train import metrics as M
+from dl_ofdm_tpu_torch.train.loop import first_output
+
+CROSS_TEST_CHANNELS = ("ETU", "EVA", "EPA", "Flat", "Custom")
 
 
 @dataclasses.dataclass
@@ -66,7 +73,7 @@ def eval_batch(trainer, snr_vec: torch.Tensor, onehot: torch.Tensor,
     bits, rx_in, _, _, _ = trainer.synthesize(
         snr_vec.shape[0], snr_vec, generator, norm_groups=onehot, bits=bits,
         unit_noise=unit_noise)
-    logits, _ = trainer.model(rx_in)
+    logits = first_output(trainer.model(rx_in))
     pred = M.bit_predictions(logits)
     err_per_frame = (pred != bits).sum(dim=(1, 2))
     errors = (err_per_frame[:, None] * onehot.to(torch.int64)).sum(dim=0)
@@ -100,7 +107,7 @@ def ber_sweep(trainer, generator: torch.Generator | None = None,
             for _ in range(n_calls):
                 bits, rx_in, _, _, _ = trainer.synthesize(
                     batch_frames, snr_vec, generator)
-                logits, _ = trainer.model(rx_in)
+                logits = first_output(trainer.model(rx_in))
                 tot_err[i] += (M.bit_predictions(logits) != bits).sum()
                 tot_ce[i] += M.frame_cross_entropy(logits, bits).sum()
     else:
@@ -118,3 +125,40 @@ def ber_sweep(trainer, generator: torch.Generator | None = None,
         log_fn(f"SNR: {snr:.2f}, BER: {ber:.8f}, Loss: {loss:f}")
     return SweepResult(np.asarray(snrs, dtype=float), np.asarray(bers),
                        np.asarray(losses))
+
+
+def cross_channel_sweep(make_trainer: Callable, params: dict,
+                        generator: torch.Generator | None, token: str,
+                        opt: int, train_channel: str, mobile: bool = False,
+                        save_dir: str = ".",
+                        snrs: Sequence[int] = tuple(range(-10, 31, 5)),
+                        frames_per_point: int = 30000,
+                        batch_frames: int = 3000,
+                        test_channels: Sequence[str] = CROSS_TEST_CHANNELS,
+                        log_fn=print, point_batch: bool = False,
+                        mesh=None) -> dict[str, SweepResult]:
+    """Sweep one trained model on each test channel
+    (`dl_ofdm_tpu/eval/sweep.py:255-285`).
+
+    `make_trainer(channel, mobile)` builds each channel's trainer; `params`
+    (keyed as its model's `state_dict()`) are loaded into its model.  Each
+    result is written to `save_dir` as
+    `Test_DCCN_<token>_Equalizer<opt>_<train_channel>_test_chan_<channel>
+    [_mobile].csv`.  The mesh variant is not ported yet (ROADMAP.md
+    Queue A item 10)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh sweeps are not ported yet: ROADMAP.md Queue A item 10")
+    results = {}
+    for chan in test_channels:
+        trainer = make_trainer(chan, mobile)
+        trainer.model.load_state_dict(params)
+        log_fn(f"Test in {chan}, mobile: {mobile}")
+        res = ber_sweep(trainer, generator, snrs, frames_per_point,
+                        batch_frames, log_fn, point_batch=point_batch)
+        suffix = "_mobile" if mobile else ""
+        name = (f"Test_DCCN_{token}_Equalizer{opt}_{train_channel}"
+                f"_test_chan_{chan}{suffix}.csv")
+        res.to_csv(os.path.join(save_dir, name))
+        results[chan] = res
+    return results

@@ -14,6 +14,18 @@ import numpy as np
 import torch
 
 
+def conj_iq(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack([x[..., 0], -x[..., 1]], dim=-1)
+
+
+def abs2_iq(x: torch.Tensor) -> torch.Tensor:
+    return x[..., 0] ** 2 + x[..., 1] ** 2
+
+
+def abs_iq(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    return torch.sqrt(abs2_iq(x) + eps)
+
+
 def cmul_iq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ar, ai = a[..., 0], a[..., 1]
     br, bi = b[..., 0], b[..., 1]

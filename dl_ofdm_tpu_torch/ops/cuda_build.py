@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"complex_dense": "complex_dense.cu",
            "fused_synth": "fused_synth.cu",
            "fused_model": "fused_model.cu",
-           "philox_probe": "philox_probe.cu"}
+           "philox_probe": "philox_probe.cu",
+           "fir_shift_accum": "fir_shift_accum.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name

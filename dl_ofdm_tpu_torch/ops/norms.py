@@ -1,6 +1,7 @@
 """Normalization and activation with reference-exact semantics.
 
-Port of `dl_ofdm_tpu/ops/norms.py` (`batch_norm_ref`, `leaky_relu`).
+Port of `dl_ofdm_tpu/ops/norms.py` (`frame_layer_norm`, `batch_norm_ref`,
+`leaky_relu`).
 """
 from __future__ import annotations
 
@@ -8,6 +9,17 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def frame_layer_norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Per-example layer norm over every non-batch axis, no learned affine
+    (`tf.contrib.layers.layer_norm(x, center=False, scale=False,
+    begin_norm_axis=1)`, reference `dev/py/model.py:363`): the population
+    variance, as `jnp.var` takes it."""
+    dims = tuple(range(1, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
 
 
 def batch_norm_ref(x: torch.Tensor, eps: float = 1e-9,

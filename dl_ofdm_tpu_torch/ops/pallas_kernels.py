@@ -2,9 +2,11 @@
 kernels, each beside its plain PyTorch version.
 
 Port of `dl_ofdm_tpu/ops/pallas_kernels.py` (the module keeps its name so
-its counterpart is easy to find).  This slice ports `complex_dense`, the
-learned-DFT complex matmul y = x @ (wr + i wi) of the DCCN's `fft_like`
-layer:
+its counterpart is easy to find).  It holds both of that module's kernels.
+
+`complex_dense`, the learned-DFT complex matmul y = x @ (wr + i wi) of the
+DCCN's `fft_like` layer and of the equalizer's `ToFreq`, `CorrT` and
+`ToTime`:
 
   * `complex_dense_kernel` launches the CUDA kernel
     (`csrc/complex_dense.cu`, built by `ops/cuda_build.py`) on a CUDA
@@ -15,6 +17,20 @@ layer:
     for CUDA tensors, the plain version for CPU tensors, and the backward
     pass of `_cdense_bwd` (`pallas_kernels.py:108-119`) as plain matmuls,
     as in JAX.
+
+`fir_shift_accum`, the channel's per-row complex FIR over pre-aligned rows
+out[b, n] = sum_k h[b, k] xa[b, n + F - 1 - k] (`pallas_kernels.py:141-188`),
+which `channel.fir.fir_same_iq` runs on every static-fading frame:
+
+  * `fir_shift_accum_kernel` launches the CUDA kernel
+    (`csrc/fir_shift_accum.cu`) on planes on a CUDA device and counts its
+    launches in `fir_shift_accum_kernel.launches`;
+  * `fir_shift_accum_ref` is the plain version, the shift-and-accumulate
+    loop of `fir_same_iq` (`dl_ofdm_tpu/channel/fir.py:160-170`);
+  * `fir_shift_accum` is JAX's `fir_shift_accum` on split re/im planes
+    and picks one of the two by the tensors' device.  Neither package
+    differentiates the channel, so it has no backward pass and the kernel
+    refuses inputs that require a gradient.
 
 There is no fallback: a CUDA tensor goes through the kernel, and a failed
 build or launch raises.
@@ -119,3 +135,111 @@ def complex_dense(x_iq: torch.Tensor, wr: torch.Tensor,
     k = x_iq.shape[-2]
     y = ComplexDenseFn.apply(x_iq.reshape(-1, k, 2).contiguous(), wr, wi)
     return y.reshape(*lead, wr.shape[1], 2)
+
+
+# ---------------------------------------------------------------------------
+# FIR shift-accumulate: out[b, n] = sum_k h[b, k] * xa[b, n + F - 1 - k]
+# ---------------------------------------------------------------------------
+
+def fir_shift_accum_ref(xar: torch.Tensor, xai: torch.Tensor,
+                        hr: torch.Tensor, hi: torch.Tensor, l_out: int):
+    """Planes xa [B, L+F-1] and taps h [B, F] -> (yr, yi) [B, L], plain
+    PyTorch: taps ascending, (acc + sr*hr) - si*hi and (acc + sr*hi) +
+    si*hr."""
+    f = hr.shape[1]
+    out_r = xar.new_zeros(xar.shape[0], l_out)
+    out_i = xar.new_zeros(xar.shape[0], l_out)
+    for k in range(f):
+        s = f - 1 - k
+        sr = xar[:, s:s + l_out]
+        si = xai[:, s:s + l_out]
+        tr = hr[:, k:k + 1]
+        ti = hi[:, k:k + 1]
+        out_r = out_r + sr * tr - si * ti
+        out_i = out_i + sr * ti + si * tr
+    return out_r, out_i
+
+
+class _FirArgs(ctypes.Structure):
+    """`FirArgs` of csrc/fir_shift_accum.cu, field for field."""
+    _fields_ = [(n, ctypes.c_void_p)
+                for n in ("xar", "xai", "hr", "hi", "yr", "yi")] + [
+        (n, ctypes.c_int) for n in ("B", "L", "F", "tile")]
+
+
+@functools.cache
+def _fir_lib():
+    lib = cuda_build.load("fir_shift_accum")
+    lib.fir_shift_accum_f32.argtypes = [ctypes.POINTER(_FirArgs),
+                                        ctypes.c_void_p]
+    lib.fir_shift_accum_f32.restype = ctypes.c_int
+    lib.fir_shift_accum_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fir_shift_accum_smem.restype = ctypes.c_longlong
+    return lib
+
+
+# outputs of a row that a block stages per chunk; a row of the sweep's 560
+# samples is one chunk
+FIR_TILE = 1024
+FIR_SMEM_MAX = 227 * 1024      # shared memory a Hopper block can have
+
+
+def fir_shift_accum_kernel(xar: torch.Tensor, xai: torch.Tensor,
+                           hr: torch.Tensor, hi: torch.Tensor, l_out: int):
+    """Launch the CUDA kernel: planes xa [B, L+F-1] and taps h [B, F], all
+    contiguous float32 on one CUDA device, none requiring a gradient ->
+    (yr, yi) [B, L].  Raises on anything else."""
+    ts = (xar, xai, hr, hi)
+    if not all(t.is_cuda and t.device == xar.device for t in ts):
+        raise ValueError("fir_shift_accum_kernel: xa and h planes must be on "
+                         "one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("fir_shift_accum_kernel takes float32 tensors")
+    if any(t.requires_grad for t in ts):
+        raise ValueError("fir_shift_accum_kernel has no backward pass; the "
+                         "channel is not differentiated")
+    b, f = hr.shape if hr.dim() == 2 else (-1, -1)
+    if not (xar.dim() == 2 and xar.shape == xai.shape and hr.shape == hi.shape
+            and xar.shape[0] == b and f >= 1 and l_out >= 1
+            and xar.shape[1] == l_out + f - 1):
+        raise ValueError(
+            f"fir_shift_accum_kernel: shapes xa {tuple(xar.shape)}, h "
+            f"{tuple(hr.shape)}, l_out {l_out}; want [B, L+F-1] and [B, F]")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("fir_shift_accum_kernel takes contiguous planes")
+    if b * xar.shape[1] >= 2**31 or b * l_out >= 2**31:
+        raise ValueError("fir_shift_accum_kernel: sizes overflow int32")
+    tile = min(l_out, FIR_TILE)
+    lib = _fir_lib()
+    if lib.fir_shift_accum_smem(f, tile) > FIR_SMEM_MAX:
+        raise ValueError(f"fir_shift_accum_kernel: {f} taps do not fit a "
+                         "block's shared memory")
+    yr = torch.empty(b, l_out, device=xar.device, dtype=torch.float32)
+    yi = torch.empty_like(yr)
+    if b == 0:                  # an empty grid is an invalid launch
+        return yr, yi
+    args = _FirArgs(*(t.data_ptr() for t in (xar, xai, hr, hi, yr, yi)),
+                    b, l_out, f, tile)
+    with torch.cuda.device(xar.device):
+        err = lib.fir_shift_accum_f32(
+            ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fir_shift_accum kernel launch failed: CUDA "
+                           f"error {err}")
+    fir_shift_accum_kernel.launches += 1
+    return yr, yi
+
+
+fir_shift_accum_kernel.launches = 0
+
+
+def fir_shift_accum(xar: torch.Tensor, xai: torch.Tensor, hr: torch.Tensor,
+                    hi: torch.Tensor, l_out: int):
+    """(yr, yi) [B, L] from pre-aligned rows xa [B, L+F-1] and kernels
+    h [B, F] as re/im planes (alignment is the caller's, see
+    `channel.fir.fir_same_iq`): the kernel for planes on a CUDA device,
+    the plain version for planes on the CPU."""
+    if xar.device.type == "cpu":
+        return fir_shift_accum_ref(xar, xai, hr, hi, l_out)
+    return fir_shift_accum_kernel(*(t.contiguous() for t in (xar, xai, hr, hi)),
+                                  l_out)

@@ -2,10 +2,12 @@
 
 Port of `dl_ofdm_tpu/train/loop.py`: `TrainState`, `make_optimizer`,
 `Trainer` (`synthesize`, `init_state`, `_loss_fn`, `train_step` with its
-two routes, `eval_step`, `_ideal_batch_frames`, `fit`).  Random draws come
-from an explicit `torch.Generator` in place of `jax.random` keys; the
-streams differ from JAX's, so the tests hand both packages the same draws
-(`bits=`, `unit_noise=` here, `words=` for the fused route).
+two routes, `eval_step`, `_ideal_batch_frames`, `fit`), with the hook the
+equalizer stage uses: `model=` (any receiver that returns its logits
+first).  Random draws come from an explicit `torch.Generator` in place of
+`jax.random` keys; the streams differ from JAX's, so the tests hand both
+packages the same draws (`bits=`, `unit_noise=` here, `words=` for the
+fused route).
 
 `train_step` has the JAX package's two routes:
 
@@ -18,8 +20,8 @@ streams differ from JAX's, so the tests hand both packages the same draws
     kernel's normalized output (or on `synthesize` where the fused chain
     does not apply).
 
-Parameters live in a `TrainState` as a `DCCNReceiver.state_dict()`-keyed
-dict; the model module only supplies the forward function
+Parameters live in a `TrainState` as a dict keyed as the model's
+`state_dict()`; the model module only supplies the forward function
 (`torch.func.functional_call`).
 """
 from __future__ import annotations
@@ -49,7 +51,7 @@ from dl_ofdm_tpu_torch.train import metrics as M
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict          # name -> tensor, keyed as DCCNReceiver.state_dict()
+    params: dict          # name -> tensor, keyed as the model's state_dict()
     opt_state: dict       # Adam moments and count (`Adam.init`)
     step: int
 
@@ -110,18 +112,27 @@ def make_optimizer(tc: TrainConfig) -> Adam:
     return Adam(tc)
 
 
+def first_output(out):
+    """The logits: every receiver returns them first (`loop.py:258-261`)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 class Trainer:
     """The basic DCCN receiver on an AWGN, static fading or Jakes-Doppler
     (`mobile=True`) channel.
 
-    `mix` applies Doppler to the designated frames of a mixed channel
-    (every 3rd of mixRayleigh, every 4th of mixAll); mobile implies it
-    unless given (`loop.py:78-82`).  `device` defaults to `cuda` and raises
-    where there is none (`resolve_device`); the model's parameters live
-    there."""
+    `model` replaces the `DCCNReceiver` (`loop.py:75,85`): any module with
+    `reset_parameters(generator)` whose output is the logits or a tuple
+    that starts with them.  The fused model route is for the bare
+    `DCCNReceiver` only (`loop.py:158`).  `mix` applies Doppler to the
+    designated frames of a mixed channel (every 3rd of mixRayleigh, every
+    4th of mixAll); mobile implies it unless given (`loop.py:78-82`).
+    `device` defaults to `cuda` and raises where there is none
+    (`resolve_device`); the model's parameters live there."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig, channel: str = "AWGN",
                  mobile: bool = False, mix: bool | None = None,
+                 model: torch.nn.Module | None = None,
                  device: str | torch.device | None = None):
         if cfg.compute_dtype is not None:
             raise NotImplementedError(
@@ -130,10 +141,12 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg, self.tc = cfg, tc
         self.plan = build_plan(cfg)
-        self.model = DCCNReceiver(
-            nbits=cfg.nbits, nfft=cfg.nfft, cp_len=self.plan.cp_len,
-            nfilter=cfg.nfilter, frame_size=self.plan.frame_size,
-            nsymbol=cfg.nsymbol, keep_cp=cfg.cp).to(self.device)
+        if model is None:
+            model = DCCNReceiver(
+                nbits=cfg.nbits, nfft=cfg.nfft, cp_len=self.plan.cp_len,
+                nfilter=cfg.nfilter, frame_size=self.plan.frame_size,
+                nsymbol=cfg.nsymbol, keep_cp=cfg.cp)
+        self.model = model.to(self.device)
         self.channel = RayleighChannel(
             channel=channel, nfft=cfg.nfft,
             sample_rate=self.plan.sample_rate, mobile=mobile,
@@ -164,6 +177,7 @@ class Trainer:
                 self.plan, profs, cfg.nbits, fd=fd, dop_cycle=dop_cycle)
         self._fused_model_spec = None
         if (self._fused_synth_spec is not None
+                and type(self.model) is DCCNReceiver
                 and self.model.fft_like.recombine == "true"
                 and self.model.keep_cp and not tc.double_softmax):
             self._fused_model_spec = ModelSpec(
@@ -214,7 +228,7 @@ class Trainer:
     def _loss_fn(self, params: dict, bits: torch.Tensor,
                  rx_in: torch.Tensor):
         """(CE + stop_grad(BER) * reg_coeff * L2, metrics) (`loop.py:257`)."""
-        logits, _ = functional_call(self.model, params, (rx_in,))
+        logits = first_output(functional_call(self.model, params, (rx_in,)))
         ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
         reg = M.l2_regularization(params)
         conf = M.confusion_matrix(bits, M.bit_predictions(logits))
@@ -226,9 +240,12 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
     def _apply(self, state: TrainState, grads: dict) -> TrainState:
+        """The optimizer on the parameters that `grads` holds; any other
+        parameter keeps its tensor."""
         updates, opt_state = self.optimizer.update(grads, state.opt_state)
         keys = list(updates)
-        params = dict(zip(keys, torch._foreach_add(
+        params = dict(state.params)
+        params.update(zip(keys, torch._foreach_add(
             [state.params[k] for k in keys], [updates[k] for k in keys])))
         return TrainState(params, opt_state, state.step + 1)
 
@@ -334,11 +351,11 @@ class Trainer:
         if ckpt_dir is not None:
             raise NotImplementedError(
                 "resume payloads (ckpt_dir) are not ported yet: ROADMAP.md "
-                "Queue A item 7")
+                "Queue A item 5")
         if dump_constellations:
             raise NotImplementedError(
                 "dump_constellations is not ported yet: ROADMAP.md Queue A "
-                "item 14 (utils/observability)")
+                "item 11 (utils/observability)")
         tc = self.tc
         seed = tc.seed if seed is None else seed
         max_epochs = tc.max_epoch_num if max_epochs is None else max_epochs

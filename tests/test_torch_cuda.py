@@ -215,3 +215,83 @@ def test_philox_probe_kernel_matches_plain_version(cuda):
     assert torch.equal(got.to(torch.int64) & 0xFFFFFFFF, want)
     q = pp.main()
     assert q["device"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.parametrize("b,l,f", [(30000, 560, 13), (73, 560, 9),
+                                   (5, 1120, 1), (9, 40, 300)])
+def test_fir_shift_accum_kernel_matches_plain_version(cuda, b, l, f):
+    """Same float32 operations in the same order (no contracted
+    multiply-adds): within 1e-6 of max |y|."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    xar, xai = (torch.randn(b, l + f - 1, device=cuda, generator=g)
+                for _ in range(2))
+    hr, hi = (torch.randn(b, f, device=cuda, generator=g) for _ in range(2))
+    before = tpk.fir_shift_accum_kernel.launches
+    yr, yi = tpk.fir_shift_accum_kernel(xar, xai, hr, hi, l)
+    wr, wi = tpk.fir_shift_accum_ref(xar, xai, hr, hi, l)
+    torch.cuda.synchronize()
+    assert tpk.fir_shift_accum_kernel.launches == before + 1
+    scale = float(torch.maximum(wr.abs().max(), wi.abs().max()))
+    assert float((yr - wr).abs().max()) <= 1e-6 * scale
+    assert float((yi - wi).abs().max()) <= 1e-6 * scale
+
+
+def test_fir_shift_accum_kernel_rejects_bad_input(cuda):
+    x = torch.randn(4, 22, device=cuda)
+    h = torch.randn(4, 3, device=cuda)
+    with pytest.raises(TypeError):
+        tpk.fir_shift_accum_kernel(x.double(), x.double(), h.double(),
+                                   h.double(), 20)
+    with pytest.raises(ValueError):
+        tpk.fir_shift_accum_kernel(x, x, h, h, 21)
+    with pytest.raises(ValueError):
+        tpk.fir_shift_accum_kernel(x, x, h.requires_grad_(), h, 20)
+
+
+@pytest.mark.parametrize("channel", ["ETU", "mixRayleigh"])
+def test_fir_same_iq_on_card_launches_the_kernel(cuda, channel):
+    import numpy as np
+    from dl_ofdm_tpu_torch.channel import fir
+    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
+    ch = RayleighChannel(channel)
+    b = 41
+    offsets = ch._offset_np[ch._frame_profiles(b)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(b, 560, 2, device=cuda, generator=g)
+    h = torch.randn(b, ch.max_fir, 2, device=cuda, generator=g)
+    before = tpk.fir_shift_accum_kernel.launches
+    y = fir.fir_same_iq(x, h, offsets)
+    torch.cuda.synchronize()
+    assert tpk.fir_shift_accum_kernel.launches == before + 1
+    want = fir.fir_same_iq(x.cpu(), h.cpu(), np.asarray(offsets))
+    scale = float(want.abs().max())
+    assert float((y.cpu() - want).abs().max()) <= 1e-6 * scale
+
+
+def test_equalizer_step_on_card(cuda):
+    """One curriculum step of the equalizer stage (opt 12, mixRayleigh):
+    the static FIR through its kernel, the equalizer's complex dense
+    layers through theirs, the receiver frozen."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    tr = EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(
+        snr=10.0, batch_size=512, opt=12), channel="mixRayleigh")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = tr.init_state(g)
+    rx0 = {k: v.clone() for k, v in state.params.items()
+           if k.startswith("receiver.")}
+    n_fir = tpk.fir_shift_accum_kernel.launches
+    n_cd = tpk.complex_dense_kernel.launches
+    state, aux = tr.train_step_curriculum(state, g)
+    torch.cuda.synchronize()
+    assert tpk.fir_shift_accum_kernel.launches == n_fir + 1
+    # ToFreq, CorrT, ToTime and the receiver's fft_like
+    assert tpk.complex_dense_kernel.launches == n_cd + 4
+    assert state.step == 1
+    assert all(torch.isfinite(aux[k]) for k in ("loss", "chan_mse",
+                                                "snr_mse"))
+    for k, v in rx0.items():
+        assert torch.equal(state.params[k], v), k
+    assert set(state.opt_state["mu"]) == {
+        k for k in state.params if k.startswith("Equalizer.")}

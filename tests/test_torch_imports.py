@@ -37,6 +37,21 @@ def test_port_files_found():
     assert len(PORT_FILES) >= 15
 
 
+@pytest.mark.parametrize("module", [
+    "ops/complex_ops.py", "ops/norms.py", "ops/pallas_kernels.py",
+    "channel/fir.py", "models/equalizers.py", "models/receiver.py",
+    "train/transfer.py", "train/curriculum.py", "train/equalizer_loop.py",
+    "eval/sweep.py"])
+def test_equalizer_stage_modules_are_scanned(module):
+    """The equalizer stage's modules are among the files the import scan
+    reads, and import without JAX's modules being reached."""
+    path = os.path.join(ROOT, "dl_ofdm_tpu_torch", module)
+    assert path in PORT_FILES
+    import importlib
+    importlib.import_module("dl_ofdm_tpu_torch." + module[:-3].replace(
+        "/", "."))
+
+
 @pytest.mark.parametrize(
     "path", PORT_FILES + SCRIPT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
     ids=lambda p: os.path.relpath(p, ROOT))

@@ -217,9 +217,9 @@ def test_fit_runs_and_routes_default_to_autograd_on_cpu():
     assert state.step == 4 and info["best_epoch"] in (0, 1)
     for h in info["history"]:
         assert np.isfinite([h["train_loss"], h["val_ber"], h["val_loss"]]).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         tt.fit(max_epochs=1, ckpt_dir="x")
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
+    with pytest.raises(NotImplementedError, match="Queue A item 11"):
         tt.fit(max_epochs=1, dump_constellations=True)
 
 

@@ -11,9 +11,12 @@ Phases, each printed with its elapsed seconds:
     checkout's sources (`dl_ofdm_tpu_torch/ops/cuda_build.py`).
  3. kernel against its plain version: `complex_dense` at the sweep's shape
     (M = 1968*7, K = 80, F = 64) and at a ragged one, atol = rtol = 1e-5
-    (float32 with reordered sums); its device time (CUDA graph replay), the
-    plain version's, one PyTorch call's (complex64 matmul), the card's
-    bound for the work, and each one's time when launched from Python.
+    (float32 with reordered sums); then at three shapes (the sweep's, the
+    equalizer's 210,000 x 64 x 64 and the autograd training route's
+    65,534 x 80 x 64) the persistent kernel's device time (CUDA graph
+    replay), the plain
+    version's, one PyTorch call's (complex64 matmul), the card's bound for
+    the work, and each one's time when launched from Python.
  4. serving path at full width: the committed 16QAM arm
     (`runs/arms/OFDM_Dense3_4mod_snr20_cpTrue.npz`) through `ber_sweep` on
     the AWGN channel, SNR -10..30 dB, 20,000 frames per point, 2,000-frame
@@ -41,9 +44,12 @@ Phases, each printed with its elapsed seconds:
     |t| < 1e-5.  The plain version also against torch autograd of
     `DCCNReceiver` + `cross_entropy` (nbits 1): asserted in float64 on
     1,024 frames, measured in float32 at full size.
-    Times: kernel, plain version, bound (both compute bounds), and as the
-    library time autograd's forward and backward of the plain model
-    (cuBLAS).
+    Times: kernel (device time from a CUDA graph of the calls, and eager),
+    plain version, bound (both compute bounds), and as the library time
+    autograd's forward and backward of the plain model (cuBLAS).  Then the bf16 kernel (tensor cores) at bench.py's four batch
+    sizes beside its bound, its plain version, that float32 autograd
+    yardstick and the five GEMMs as bf16 cuBLAS calls (`torch.mm` with
+    float32 output where torch offers it).
  8. the training step at full width, `bench.py`'s configuration (nbits 1,
     ETU, SNR 5 dB, bfloat16 GEMM inputs) on the fused route at 2,340,
     9,362, 18,724 and 37,449 frames a step: one warm-up step and 20 timed
@@ -52,7 +58,8 @@ Phases, each printed with its elapsed seconds:
     one init on the same batches by each route (float32 products, 9,362
     frames): step 1's gradients agree within 5e-2 of each leaf's max (leaky
     kinks, see phase 7's float32 autograd number); the largest
-    parameter difference after 20 steps is printed.  Last, `fit` for three
+    parameter difference after 20 steps is printed.  The model kernel
+    twice on one synthesized 9,362-frame batch: bit-identical outputs.  Last, `fit` for three
     epochs on AWGN at 5 dB from `init_state`: the train CE must fall.
  9. the synth kernel's Doppler rows and true channel against its plain
     version on the same Philox words: mixRayleigh mobile nbits 1 at 9,362
@@ -108,6 +115,11 @@ Phases, each printed with its elapsed seconds:
     step (the union of kernel intervals), the idle share of that ms/step,
     kernels a step, the host's waits on the device and copies a step, the
     top kernels.
+18. where the bf16 model kernel's time goes at the four batch sizes:
+    6 calls under `torch.profiler` (those with every launch recorded
+    count), device µs a call for the prologue, each of the
+    five tensor-core GEMMs, the head, the reductions (split and column
+    sums, the head's sums, the fold) and the parameter packing.
  5. (printed last) one `{"kernels": [...]}` line with all five kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts), of
@@ -223,6 +235,10 @@ def check_curve(name, ber, ref, ref_name):
 
 
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+# complex_dense's timed shapes: the sweep's fft_like (1,968 frames x 7
+# symbols), the equalizer's ToFreq/CorrT/ToTime when serving, the autograd
+# training route's fft_like at 9,362 frames
+CD_SHAPES = ((1968 * 7, 80, 64), (210000, 64, 64), (9362 * 7, 80, 64))
 TRAIN_FRAMES = (2340, 9362, 18724, 37449)   # bench.py's batch grid // 7
 SYNTH_CASES = (("ETU", 1, 9362), ("AWGN", 4, 1001), ("mixAll", 2, 997))
 # (channel, nbits, frames, want_h) of phase 9, all mobile
@@ -486,7 +502,11 @@ def phase_model(tfm, tfs, planes, dev, hbm_bps, f32_flops) -> dict:
                 line.update(plain_vs_autograd(tfm, rx, spec, params, args, x,
                                               bits))
             if nbits == 1:
-                k_ms = events_ms(lambda: tfm.dccn_fused_grads_kernel(*args))
+                # device time from a CUDA graph of the calls; eager: the
+                # same calls issued from Python (the host's pace where it
+                # is slower)
+                k_ms, k_eager = time_ms(
+                    lambda: tfm.dccn_fused_grads_kernel(*args), 20)
                 p_ms = events_ms(lambda: tfm.dccn_fused_grads_ref(*args))
                 l_ms = events_ms(lambda: library_step(params, x, bits))
                 n_params = sum(v.numel() for v in params.values())
@@ -495,7 +515,8 @@ def phase_model(tfm, tfs, planes, dev, hbm_bps, f32_flops) -> dict:
                 t_f32, t_bf16 = flops / f32_flops * 1e3, flops / BF16_FLOPS * 1e3
                 t_o = t_bf16 if dtype == "bfloat16" else t_f32
                 bound, by = max((t_b, "bytes"), (t_o, "operations"))
-                line.update(kernel_ms=k_ms, plain_ms=p_ms,
+                line.update(kernel_ms=k_ms, kernel_eager_ms=k_eager,
+                            plain_ms=p_ms,
                             library_ms=l_ms, library="autograd fwd+bwd of "
                             "the plain model (cuBLAS, complex64 matmul)",
                             bytes=n_bytes, flops=flops, bytes_ms=t_b,
@@ -503,6 +524,7 @@ def phase_model(tfm, tfs, planes, dev, hbm_bps, f32_flops) -> dict:
                             bound_ms=bound, bound_by=by)
                 if dtype == "bfloat16":    # the main path's GEMM inputs
                     result = {"max_abs_err": err, "ms": k_ms,
+                              "eager_ms": k_eager,
                               "plain_ms": p_ms, "bound_ms": bound,
                               "bound_by": by, "library_ms": l_ms,
                               "check": "pass"}
@@ -511,7 +533,98 @@ def phase_model(tfm, tfs, planes, dev, hbm_bps, f32_flops) -> dict:
                 f"max |dg| {err:.3g}, counts off by {dconf}, {ambiguous} "
                 f"ambiguous bits)")
             print(json.dumps(line), flush=True)
+    result["by_frames"] = model_sizes(tfm, dev, hbm_bps)
+    result["library_bf16_gemms_ms"] = \
+        result["by_frames"][TRAIN_FRAMES[1]]["bf16_gemms_ms"]
     return result
+
+
+def bf16_gemms(spec, b: int, dev):
+    """The model kernel's five GEMMs at b frames as bf16 `torch.mm` with
+    float32 output where torch offers it (cuBLAS tensor cores): a yardstick
+    timed here, never called by the port.  Returns (fn, output dtype)."""
+    import torch
+    s_, p_, f_, d_ = spec.nsymbol, spec.sps, spec.nfilter, spec.frame_size
+    bs, x2w, e2 = b * s_, s_ * 2 * f_, 2 * d_
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x, wexp = torch.randn(bs, 2 * p_, **bf), torch.randn(2 * p_, 2 * f_, **bf)
+    x2, we = torch.randn(b, x2w, **bf), torch.randn(e2, x2w, **bf)
+    de, dx2 = torch.randn(b, e2, **bf), torch.randn(bs, 2 * f_, **bf)
+    try:
+        torch.mm(x[:8], wexp, out_dtype=torch.float32)
+        kw = {"out_dtype": torch.float32}
+    except (TypeError, RuntimeError):
+        kw = {}
+
+    def fn():
+        torch.mm(x, wexp, **kw)
+        torch.mm(x2, we.T, **kw)
+        torch.mm(de.T, x2, **kw)
+        torch.mm(de, we, **kw)
+        torch.mm(x.T, dx2, **kw)
+    return fn, "float32" if kw else "bfloat16"
+
+
+def model_sizes(tfm, dev, hbm_bps) -> dict:
+    """Phase 7, second part: the bf16 kernel at bench.py's four batch sizes
+    (nbits 1, random planes) beside its bound, its plain version, the
+    float32 autograd yardstick and the five GEMMs as bf16 cuBLAS calls."""
+    import torch
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    spec = tfm.ModelSpec(nsymbol=7, sps=80, nfilter=64, frame_size=320,
+                         nbits=1, matmul_dtype="bfloat16")
+    rx = DCCNReceiver(nbits=1, nfft=64, cp_len=16, nfilter=64,
+                      frame_size=320).to(dev)
+    rx.reset_parameters(torch.Generator(device=dev).manual_seed(70))
+    params = {k: v.detach() for k, v in rx.state_dict().items()}
+    n_params = sum(v.numel() for v in params.values())
+    gen = torch.Generator(device=dev).manual_seed(71)
+    out = {}
+    for b in TRAIN_FRAMES:
+        planes = [torch.randn(b, 560, device=dev, generator=gen)
+                  for _ in range(4)]
+        c = 0.5 + torch.rand(6, 560, device=dev, generator=gen)
+        idx = torch.randint(0, 2, (b, 320), device=dev, generator=gen,
+                            dtype=torch.int32)
+        args = (spec, b, params, *planes, c, idx)
+        x = torch.stack([planes[0] * c[0] + planes[2] * c[1] - c[2],
+                         planes[1] * c[3] + planes[3] * c[4] - c[5]],
+                        -1).reshape(b, 7, 80, 2)
+        bits = idx.reshape(b, 320, 1).to(torch.int64)
+        gemms, gemm_dtype = bf16_gemms(spec, b, dev)
+        # the kernel and the cuBLAS GEMMs: device time from a CUDA graph,
+        # and eager; the plain version and autograd: eager
+        graphed = {"kernel": lambda: tfm.dccn_fused_grads_kernel(*args),
+                   "bf16_gemms": gemms}
+        runs = {"plain": lambda: tfm.dccn_fused_grads_ref(*args),
+                "autograd_f32": lambda: library_step(params, x, bits)}
+        iters = {"plain": 5, "autograd_f32": 10}
+        times = {n: [] for n in (*graphed, *runs)}
+        for n in ("kernel", "bf16_gemms", "plain", "autograd_f32",
+                  "bf16_gemms", "kernel"):
+            times[n].append(time_ms(graphed[n], 20) if n in graphed
+                            else (events_ms(runs[n], iters[n]),) * 2)
+        ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
+        eager = {n: sum(t[1] for t in v) / len(v) for n, v in times.items()}
+        n_bytes, flops = model_work(spec, b, n_params)
+        bound, by = max((n_bytes / hbm_bps * 1e3, "bytes"),
+                        (flops / BF16_FLOPS * 1e3, "operations"))
+        row = {"frames": b, "kernel_ms": ms["kernel"],
+               "kernel_eager_ms": eager["kernel"],
+               "plain_ms": ms["plain"], "autograd_f32_ms": ms["autograd_f32"],
+               "bf16_gemms_ms": ms["bf16_gemms"],
+               "bf16_gemms_eager_ms": eager["bf16_gemms"],
+               "bf16_gemms_out_dtype": gemm_dtype, "bound_ms": bound,
+               "bound_by": by, "bound_share": bound / ms["kernel"]}
+        out[b] = row
+        print(json.dumps({"phase": 7, "sizes": True, **row}), flush=True)
+        log(f"dccn_fused_grads bf16 {b:6d} frames: kernel "
+            f"{ms['kernel']:.4f} ms (eager {eager['kernel']:.4f}), five "
+            f"bf16 cuBLAS GEMMs "
+            f"{ms['bf16_gemms']:.4f} ({gemm_dtype} out), plain "
+            f"{ms['plain']:.3f}, autograd f32 {ms['autograd_f32']:.3f}, "
+            f"bound {bound:.4f} ({by})")
+    return out
 
 
 def phase_train(tfm, tfs, dev) -> dict:
@@ -577,6 +690,26 @@ def phase_train(tfm, tfs, dev) -> dict:
                      "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3)})
     frames = TRAIN_FRAMES[1]
     snr = torch.full((frames,), 5.0, device=dev)
+    # the model kernel twice on one synthesized batch: split-K partials are
+    # summed in a fixed order, so the outputs are bit-identical
+    tr = trainers[frames]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    state = tr.init_state(gen)
+    idx, yr, yi, nr, ni, stats = tfs.fused_synthesize(
+        tr._fused_synth_spec, frames, gen, snr, raw=True)
+    _, c, _, _ = tfs._combine_stats(stats.sum(0), frames)
+    outs = [tfm.dccn_fused_grads_kernel(tr._fused_model_spec, frames,
+                                        state.params, yr, yi, nr, ni, c, idx)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (g1, ce1, conf1), (g2, ce2, conf2) = outs
+    if not (all(torch.equal(g1[k], g2[k]) for k in g1)
+            and torch.equal(ce1, ce2) and torch.equal(conf1, conf2)):
+        raise AssertionError("two calls of the model kernel on one batch "
+                             "differ")
+    log(f"dccn_fused_grads ({tr._fused_model_spec.matmul_dtype}), two calls "
+        f"on one {frames}-frame batch: gradients, CE and counts "
+        f"bit-identical")
     for row in rows:
         log(f"train step {row['route']:8s} {row['frames']:6d} frames: "
             f"{row['ms_per_step']:.3f} ms/step, "
@@ -1319,6 +1452,89 @@ def phase_profile_eq(dev) -> None:
                 f"{prof['host_calls_per_step']} a step")
 
 
+# launches that every call of the bf16 model kernel makes, besides its
+# packing and its five GEMMs (phase 18)
+WHOLE_CALL = ("affine_bf16", "weights_bf16", "head_kernel", "head_finish",
+              "reduce_fold")
+
+
+def phase_model_breakdown(tfm, dev) -> None:
+    """Phase 18: where the bf16 model kernel's time goes, at bench.py's four
+    batch sizes: 6 calls under `torch.profiler` (last, as it slows the
+    launches that follow it), each launch's device µs by part; the five
+    tensor-core GEMMs are told apart by their order in a call.  The
+    profiler misses the first launches after it starts, so only the calls
+    with every launch recorded count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    spec = tfm.ModelSpec(nsymbol=7, sps=80, nfilter=64, frame_size=320,
+                         nbits=1, matmul_dtype="bfloat16")
+    rx = DCCNReceiver(nbits=1, nfft=64, cp_len=16, nfilter=64,
+                      frame_size=320).to(dev)
+    params = {k: v.detach() for k, v in rx.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for b in TRAIN_FRAMES:
+        planes = [torch.randn(b, 560, device=dev, generator=gen)
+                  for _ in range(4)]
+        c = 0.5 + torch.rand(6, 560, device=dev, generator=gen)
+        idx = torch.randint(0, 2, (b, 320), device=dev, generator=gen,
+                            dtype=torch.int32)
+        args = (spec, b, params, *planes, c, idx)
+        tfm.dccn_fused_grads_kernel(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(6):
+                tfm.dccn_fused_grads_kernel(*args)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        # a call starts with its packing launch; keep the calls with every
+        # launch of the route recorded
+        starts = [i for i, e in enumerate(kernels) if "pack_params" in e.name]
+        calls = [kernels[a:z] for a, z in zip(starts,
+                                               starts[1:] + [len(kernels)])]
+        calls = [c for c in calls
+                 if sum("tc_gemm_kernel" in e.name for e in c) == 5
+                 and all(any(n in e.name for e in c) for n in WHOLE_CALL)]
+        if not calls:
+            raise AssertionError(f"the profiler recorded no whole call of "
+                                 f"the model kernel at {b} frames")
+        parts, busy = {}, 0.0
+        for kernels in calls:
+            n_gemm = 0
+            for e in kernels:
+                if "tc_gemm_kernel" in e.name:
+                    part = f"gemm{(1, 2, 4, 5, 6)[n_gemm]}"
+                    n_gemm += 1
+                elif "affine_bf16" in e.name or "weights_bf16" in e.name:
+                    part = "prologue"
+                elif "head_kernel" in e.name:
+                    part = "head"
+                elif "pack_params" in e.name:
+                    part = "packing"
+                elif ("reduce_splits" in e.name or "colsum_splits" in e.name
+                      or "reduce_fold" in e.name or "head_finish" in e.name):
+                    part = "reductions"
+                else:
+                    part = "other: " + e.name[:40]
+                parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us()
+            busy += busy_us(kernels)
+        n = len(calls)
+        busy /= n
+        us = {k: v / n for k, v in sorted(parts.items())}
+        print(json.dumps({"phase": 18, "frames": b, "calls": n,
+                          "busy_us_per_call": busy,
+                          "launches_per_call": sum(map(len, calls)) / n,
+                          "us_per_call": us,
+                          "share": {k: v / busy for k, v in us.items()}}),
+              flush=True)
+        log(f"dccn_fused_grads bf16 {b:6d} frames: {busy:.1f} us busy a "
+            f"call ({n} whole calls of 6); "
+            + ", ".join(f"{k} {v:.1f}" for k, v in us.items()))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1388,29 +1604,55 @@ def main() -> None:
         log(f"complex_dense [{m},{k},2]x[{k},{f}]: kernel == plain version, "
             f"max |diff| {err:.3g}; gradients match")
 
-    m, k, f = 1968 * 7, 80, 64
-    x, wr, wi, err = checks[(m, k, f)]
-    x_c = torch.view_as_complex(x)
-    w_c = torch.complex(wr, wi)
-    with torch.no_grad():
-        runs = {"plain": lambda: complex_dense_ref(x, wr, wi),
-                "kernel": lambda: complex_dense_kernel(x, wr, wi),
-                "library": lambda: torch.matmul(x_c, w_c)}
-        times = {n: [] for n in runs}
-        for n in ("plain", "kernel", "library", "library", "kernel", "plain"):
-            times[n].append(time_ms(runs[n]))
-    ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
-    eager_ms = {n: sum(t[1] for t in v) / len(v) for n, v in times.items()}
-    n_bytes = 4 * (2 * m * k + 2 * k * f + 2 * m * f)
-    n_flops = 8 * m * k * f
-    t_bytes, t_ops = n_bytes / hbm_bps * 1e3, n_flops / f32_flops * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    print(json.dumps({
-        "kernel": "complex_dense", "shape": [m, k, f], "kernel_ms": ms["kernel"],
-        "plain_ms": ms["plain"], "library_ms": ms["library"],
-        "eager_ms": eager_ms, "timing": "CUDA graph of 100 calls",
-        "bytes": n_bytes, "flops": n_flops, "bound_ms": bound_ms,
-        "bound_by": bound_by, "peaks_of": peak_key}), flush=True)
+    # times at the serving shape, the equalizer's and the autograd
+    # training route's fft_like (9,362 frames x 7 symbols)
+    cd_times = {}
+    for m, k, f in CD_SHAPES:
+        if (m, k, f) in checks:
+            x, wr, wi, _ = checks[(m, k, f)]
+        else:
+            x = torch.randn(m, k, 2, device=dev, generator=gen)
+            wr = torch.randn(k, f, device=dev, generator=gen) / k ** 0.5
+            wi = torch.randn(k, f, device=dev, generator=gen) / k ** 0.5
+            with torch.no_grad():
+                torch.testing.assert_close(complex_dense_kernel(x, wr, wi),
+                                           complex_dense_ref(x, wr, wi),
+                                           atol=1e-5, rtol=1e-5)
+        x_c = torch.view_as_complex(x)
+        w_c = torch.complex(wr, wi)
+        with torch.no_grad():
+            runs = {"plain": lambda: complex_dense_ref(x, wr, wi),
+                    "kernel": lambda: complex_dense_kernel(x, wr, wi),
+                    "library": lambda: torch.matmul(x_c, w_c)}
+            times = {n: [] for n in runs}
+            iters = 100 if m < 100000 else 20
+            for n in ("plain", "kernel", "library", "library", "kernel",
+                      "plain"):
+                times[n].append(time_ms(runs[n], iters))
+        ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
+        eager_ms = {n: sum(t[1] for t in v) / len(v)
+                    for n, v in times.items()}
+        n_bytes = 4 * (2 * m * k + 2 * k * f + 2 * m * f)
+        n_flops = 8 * m * k * f
+        bound_ms, bound_by = bound_of(n_bytes, n_flops, hbm_bps, f32_flops)
+        cd_times[(m, k, f)] = (ms, bound_ms, bound_by)
+        plan = tpk.complex_dense_launch_plan(m, k, f, x.device.index)
+        print(json.dumps({
+            "phase": 3, "kernel": "complex_dense", "shape": [m, k, f],
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "eager_ms": eager_ms,
+            "timing": f"CUDA graph of {iters} calls",
+            "plan": plan._asdict(),
+            "bytes": n_bytes, "flops": n_flops, "bound_ms": bound_ms,
+            "bound_by": bound_by, "peaks_of": peak_key}), flush=True)
+        log(f"complex_dense [{m},{k},2]x[{k},{f}]: kernel "
+            f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f}, complex64 "
+            f"matmul {ms['library']:.4f}, bound {bound_ms:.4f} ms "
+            f"({bound_by}); {plan.row_tiles} row tiles on {plan.grid} "
+            f"blocks")
+    m, k, f = CD_SHAPES[0]
+    err = checks[(m, k, f)][3]
+    ms, bound_ms, bound_by = cd_times[(m, k, f)]
 
     # -- 4. serving path at full width ----------------------------------------
     trainer = Trainer(OFDMConfig(nbits=4), TrainConfig(), channel="AWGN")
@@ -1470,7 +1712,11 @@ def main() -> None:
         "launches": launches["interleaved"], "max_abs_err": err,
         "ms": ms["kernel"], "plain_ms": ms["plain"],
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": ms["library"], "check": "pass"}]
+        "library_ms": ms["library"], "check": "pass",
+        "ms_by_shape": {"x".join(map(str, sh)): v[0]["kernel"]
+                        for sh, v in cd_times.items()},
+        "library_ms_by_shape": {"x".join(map(str, sh)): v[0]["library"]
+                                for sh, v in cd_times.items()}}]
 
     # -- 6-8. the training path ---------------------------------------------
     synth = phase_synth(tfs, dev, hbm_bps, f32_flops)
@@ -1490,6 +1736,7 @@ def main() -> None:
     launches_eq = phase_train_eq(tpk, tfs, dev)
     phase_train_eq_mobile(tpk, tfs, dev)
     phase_profile_eq(dev)
+    phase_model_breakdown(tfm, dev)
     static = {f"static_{k}": v for k, v in synth["line"].items()
               if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels += [

@@ -14,7 +14,10 @@ y softplus(-t) + (1 - y) softplus(t), dt = sigmoid(t) - y, t = l1 - l0.
 The L2 term's gradient is added by the caller (`reg_grads`).
 
   * `dccn_fused_grads_kernel` launches the CUDA kernels of
-    `csrc/fused_model.cu` and counts its calls;
+    `csrc/fused_model.cu` and counts its calls: with bfloat16 GEMM inputs
+    its GEMMs run on the tensor cores, with float32 on the FMA units;
+    `model_plan` is its launch plan (split counts, the bf16 buffers'
+    padded pitches) in plain Python;
   * `dccn_fused_grads_ref` is the plain version: the same math, layouts
     and bfloat16 rounding in explicit torch operations;
   * `dccn_fused_grads` runs the kernel for CUDA tensors and the plain
@@ -200,12 +203,27 @@ def dccn_fused_grads_ref(spec: ModelSpec, n_frames: int, params: dict,
 class _ModelArgs(ctypes.Structure):
     """`ModelArgs` of csrc/fused_model.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "yr", "yi", "nr", "ni", "cvec", "idx", "wr", "wi", "fb", "we", "be",
-        "hp", "x2", "e", "de", "dx2", "part_we", "part_w", "part_be",
-        "part_fb", "hpart", "cpart", "dwe", "dwexp", "dbe", "dfb",
-        "dhead")] + [(n, ctypes.c_int) for n in (
+        "yr", "yi", "nr", "ni", "cvec", "idx", "wr", "wi", "br", "bi", "we",
+        "be", "wc", "bc", "wl", "bl", "fb", "hp", "x2", "e", "de", "dx2",
+        "part_we", "part_w", "part_be", "part_fb", "hpart", "cpart", "dwe",
+        "dwr", "dwi", "dbe", "dfb", "dhead", "ce", "conf", "xb", "wexpb",
+        "web", "x2b", "deb", "dx2b")] + [
+        (n, ctypes.c_int) for n in (
             "B", "S", "P", "F", "D", "nbits", "splits_we", "splits_w",
-            "splits_be", "splits_fb", "head_blocks", "round_bf16")]
+            "splits_be", "splits_fb", "head_blocks", "round_bf16", "ldx",
+            "ldd", "ldf", "ktps_we", "ktps_w")]
+
+
+def _carve(n_per_part: dict, **like) -> dict:
+    """One allocation cut into named flat views of the given sizes, each
+    on a 256-byte boundary, as vector loads and TMA want."""
+    step = 256 // like["dtype"].itemsize
+    offsets, total = {}, 0
+    for name, n in n_per_part.items():
+        offsets[name] = total
+        total += -(-n // step) * step
+    buf = torch.empty(max(total, 1), **like)
+    return {name: buf[o:o + n_per_part[name]] for name, o in offsets.items()}
 
 
 @functools.cache
@@ -218,12 +236,79 @@ def _model_fn():
 
 HEAD_ELEMS_PER_BLOCK = 256 * 8     # HEAD_THREADS * HEAD_ITEMS in the .cu,
                                    # which checks that the blocks cover B*D
+# the bf16 route's tensor-core GEMM (csrc/fused_model.cu): 128 x 128 output
+# tiles, k tiles of 64; split-K GEMMs aim at two blocks for each of the
+# card's 132 SMs with at least 2 k tiles a split
+TC_TILE, TC_BK = 128, 64
+TC_TARGET_BLOCKS = 2 * 132
+TC_MIN_KTILES = 2
 
 
 def _splits(rows: int, chunk: int, most: int) -> int:
     """Blocks over a reduced dimension of `rows`: about `chunk` rows each,
     at most `most` (each writes a partial that a second pass sums)."""
     return max(1, min(most, -(-rows // chunk)))
+
+
+def _pad8(n: int) -> int:
+    """A row of n bf16 values padded to a multiple of 8 (16 bytes), the
+    row pitch a TMA tensor map takes."""
+    return -(-n // 8) * 8
+
+
+def _tc_split(m: int, n: int, k: int) -> tuple[int, int]:
+    """(splits, k tiles a split) of a split-K tensor-core GEMM: enough
+    splits that the output tiles times the splits fill the card, none
+    empty, each summing a run of whole k tiles."""
+    tiles = -(-m // TC_TILE) * -(-n // TC_TILE)
+    ktiles = -(-k // TC_BK)
+    want = max(1, min(-(-TC_TARGET_BLOCKS // tiles),
+                      -(-ktiles // TC_MIN_KTILES)))
+    ktps = -(-ktiles // want)
+    return -(-ktiles // ktps), ktps
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPlan:
+    """What the wrapper allocates and passes for one call: the GEMM route,
+    split counts, and on the bf16 route the GEMM inputs' shapes and padded
+    row pitches (in elements; TMA takes whole 16 bytes)."""
+    route: str                  # 'tensor_core' (bf16) or 'simt' (float32)
+    splits_we: int              # GEMM 4 (dWe), over frames
+    splits_w: int               # GEMM 6 (dWexp), over symbol rows
+    ktps_we: int                # k tiles of 64 a split (tensor-core route)
+    ktps_w: int
+    splits_be: int              # column sums of de and dX2
+    splits_fb: int
+    head_blocks: int
+    ldx: int = 0                # bf16 affine(y, n): [B*S, ldx]
+    ldd: int = 0                # bf16 de: [B, ldd]
+    ldf: int = 0                # each run of 2F bf16 values (a symbol of
+                                # x2 or dX2, a row of Wexp or of We's)
+    bf16_shapes: dict = dataclasses.field(default_factory=dict)
+
+
+def model_plan(spec: ModelSpec, b: int) -> ModelPlan:
+    """The launch plan of `dccn_fused_grads_kernel` for `b` frames."""
+    S, P, F, D = spec.nsymbol, spec.sps, spec.nfilter, spec.frame_size
+    bs, e2, x2w = b * S, 2 * D, S * 2 * F
+    common = dict(splits_be=_splits(b, 128, 1024),
+                  splits_fb=_splits(bs, 128, 1024),
+                  head_blocks=-(-b * D // HEAD_ELEMS_PER_BLOCK))
+    if spec.matmul_dtype == "float32":
+        # ~1-2K frames (or symbol rows) a block; column sums: a thread sums
+        # ~128-256 rows, so enough blocks are in flight
+        return ModelPlan("simt", _splits(b, 1024, 32), _splits(bs, 2048, 32),
+                         0, 0, **common)
+    ldx, ldd, ldf = _pad8(2 * P), _pad8(e2), _pad8(2 * F)
+    # GEMM 4 computes dWe on the padded S*ldf columns (the padding's are
+    # dropped by its epilogue)
+    sp_we, ktps_we = _tc_split(e2, S * ldf, b)
+    sp_w, ktps_w = _tc_split(2 * P, 2 * F, bs)
+    shapes = {"xb": (bs, ldx), "wexpb": (2 * P, ldf), "web": (e2, S * ldf),
+              "x2b": (b, S * ldf), "deb": (b, ldd), "dx2b": (b, S * ldf)}
+    return ModelPlan("tensor_core", sp_we, sp_w, ktps_we, ktps_w, ldx=ldx,
+                     ldd=ldd, ldf=ldf, bf16_shapes=shapes, **common)
 
 
 def dccn_fused_grads_kernel(spec: ModelSpec, n_frames: int, params: dict,
@@ -259,38 +344,36 @@ def dccn_fused_grads_kernel(spec: ModelSpec, n_frames: int, params: dict,
                          "planes fit int32 indexing")
     f32 = dict(device=dev, dtype=torch.float32)
     c_n, j_n = 2 ** n, 2 * n
-    fb = torch.stack([params["fft_like.br"], params["fft_like.bi"]],
-                     -1).reshape(-1)
-    hp = torch.cat([params["Dense_conv1x1.weight"].T.reshape(-1),
-                    params["Dense_conv1x1.bias"],
-                    params["Dense_llr.weight"].T.reshape(-1),
-                    params["Dense_llr.bias"]])
-    h = hp.numel()
+    h = 3 * c_n + (c_n + 2) * j_n + j_n       # packed head parameters
     e2, x2w, bs = 2 * D, S * 2 * F, b * S
-    # GEMM splits: ~1-2K frames (or symbol rows) a block; column sums: a
-    # thread sums ~128-256 rows, so enough blocks are in flight
-    sp_we, sp_w = _splits(b, 1024, 32), _splits(bs, 2048, 32)
-    sp_be, sp_fb = _splits(b, 128, 1024), _splits(bs, 128, 1024)
-    head_blocks = -(-b * D // HEAD_ELEMS_PER_BLOCK)
-    x2, dx2 = torch.empty(b, x2w, **f32), torch.empty(b, x2w, **f32)
-    e, de = torch.empty(b, e2, **f32), torch.empty(b, e2, **f32)
-    part_we = torch.empty(sp_we, e2, x2w, **f32)
-    part_w = torch.empty(sp_w, 2 * P, 2 * F, **f32)
-    part_be = torch.empty(sp_be, e2, **f32)
-    part_fb = torch.empty(sp_fb, 2 * F, **f32)
-    hpart = torch.empty(head_blocks, h + 1, **f32)
-    cpart = torch.empty(head_blocks, 3, device=dev, dtype=torch.int32)
-    dwe = torch.empty(e2, x2w, **f32)
-    dwexp = torch.empty(2 * P, 2 * F, **f32)
-    dbe, dfb = torch.empty(e2, **f32), torch.empty(2 * F, **f32)
-    dhead = torch.empty(h + 1, **f32)
+    plan = model_plan(spec, b)
+    tc = plan.route == "tensor_core"
+    ws = _carve({"fb": 2 * F, "hp": h, "x2": 0 if tc else b * x2w,
+                 "e": b * e2, "de": b * e2, "dx2": b * x2w,
+                 "part_we": plan.splits_we * e2 * x2w,
+                 "part_w": plan.splits_w * 4 * P * F,
+                 "part_be": plan.splits_be * e2,
+                 "part_fb": plan.splits_fb * 2 * F,
+                 "hpart": plan.head_blocks * (h + 1)}, **f32)
+    out = _carve({"dwe": e2 * x2w, "dwr": P * F, "dwi": P * F, "dbe": e2,
+                  "dfb": 2 * F, "dhead": h + 1, "ce": 1}, **f32)
+    cpart = torch.empty(plan.head_blocks, 3, device=dev, dtype=torch.int32)
+    conf = torch.empty(2, 2, device=dev, dtype=torch.int64)
+    # bf16 GEMM inputs; the kernel zeroes the padding that a GEMM sums
+    # over (x's, x2's and the weights'), the rest is never read
+    bf = _carve({k: r * c for k, (r, c) in plan.bf16_shapes.items()},
+                device=dev, dtype=torch.bfloat16) if tc else {}
     ptrs = [t.data_ptr() for t in (
-        yr, yi, nr, ni, cvec, idx, params["fft_like.wr"],
-        params["fft_like.wi"], fb, params["Dense_extract.weight"],
-        params["Dense_extract.bias"], hp, x2, e, de, dx2, part_we, part_w,
-        part_be, part_fb, hpart, cpart, dwe, dwexp, dbe, dfb, dhead)]
-    args = _ModelArgs(*ptrs, b, S, P, F, D, n, sp_we, sp_w, sp_be, sp_fb,
-                      head_blocks, int(spec.matmul_dtype == "bfloat16"))
+        yr, yi, nr, ni, cvec, idx, *(params[k] for k in PARAM_KEYS))]
+    ptrs += [ws[k].data_ptr() for k in ws]
+    ptrs.append(cpart.data_ptr())
+    ptrs += [out[k].data_ptr() for k in out]
+    ptrs.append(conf.data_ptr())
+    ptrs += [bf[k].data_ptr() for k in bf] if tc else [0] * 6
+    args = _ModelArgs(*ptrs, b, S, P, F, D, n, plan.splits_we,
+                      plan.splits_w, plan.splits_be, plan.splits_fb,
+                      plan.head_blocks, int(tc), plan.ldx, plan.ldd,
+                      plan.ldf, plan.ktps_we, plan.ktps_w)
     with torch.cuda.device(dev):
         err = _model_fn()(ctypes.byref(args),
                           torch.cuda.current_stream().cuda_stream)
@@ -298,23 +381,53 @@ def dccn_fused_grads_kernel(spec: ModelSpec, n_frames: int, params: dict,
         raise RuntimeError(f"fused_model kernel launch failed: CUDA error "
                            f"{err}")
     dccn_fused_grads_kernel.launches += 1
-    dwr, dwi = _fold_expanded(dwexp, P)
+    dhead, dfb = out["dhead"], out["dfb"]
     o_bc, o_wl = 2 * c_n, 3 * c_n
     o_bl = o_wl + (c_n + 2) * j_n
-    grads = {"fft_like.wr": dwr, "fft_like.wi": dwi,
+    grads = {"fft_like.wr": out["dwr"].view(P, F),
+             "fft_like.wi": out["dwi"].view(P, F),
              "fft_like.br": dfb[0::2], "fft_like.bi": dfb[1::2],
-             "Dense_extract.weight": dwe, "Dense_extract.bias": dbe,
-             "Dense_conv1x1.weight": dhead[:o_bc].reshape(2, c_n).T,
+             "Dense_extract.weight": out["dwe"].view(e2, x2w),
+             "Dense_extract.bias": out["dbe"],
+             "Dense_conv1x1.weight": dhead[:o_bc].view(2, c_n).T,
              "Dense_conv1x1.bias": dhead[o_bc:o_wl],
-             "Dense_llr.weight": dhead[o_wl:o_bl].reshape(c_n + 2, j_n).T,
+             "Dense_llr.weight": dhead[o_wl:o_bl].view(c_n + 2, j_n).T,
              "Dense_llr.bias": dhead[o_bl:h]}
-    counts = cpart.sum(0)
-    conf = _confusion(counts[0], counts[1], counts[2], b * D * n)
-    out = (grads, dhead[h] / (b * D * n), conf)
-    return out + (e,) if return_e else out
+    res = (grads, out["ce"][0], conf)
+    return res + (ws["e"].view(b, e2),) if return_e else res
 
 
 dccn_fused_grads_kernel.launches = 0
+
+
+def tensor_core_gemm_check(a, b, a_mn: bool, b_mn: bool, splits: int = 1):
+    """One launch of the bf16 route's tensor-core GEMM on contiguous bf16
+    CUDA operands, for holding each operand layout against a reference:
+    A [M, K] (or [K, M] with `a_mn`), B [N, K] (or [K, N] with `b_mn`);
+    returns the float32 split partials [splits, M, N] over runs of whole
+    k tiles.  Rows must be a multiple of 8 elements long."""
+    m, k = (a.shape[1], a.shape[0]) if a_mn else a.shape
+    n = b.shape[1] if b_mn else b.shape[0]
+    if not (a.is_cuda and b.device == a.device and a.is_contiguous()
+            and b.is_contiguous() and a.dtype == b.dtype == torch.bfloat16):
+        raise ValueError("tensor_core_gemm_check takes contiguous bf16 "
+                         "operands on one CUDA device")
+    ktiles = -(-k // TC_BK)
+    ktps = -(-ktiles // splits)
+    c = torch.empty(-(-ktiles // ktps), m, n, device=a.device,
+                    dtype=torch.float32)
+    fn = cuda_build.load("fused_model").tc_gemm_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                 int(a_mn), int(b_mn), c.shape[0], ktps,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tensor-core GEMM launch failed: CUDA error "
+                           f"{err}")
+    return c
 
 
 def dccn_fused_grads(spec: ModelSpec, n_frames: int, params: dict,

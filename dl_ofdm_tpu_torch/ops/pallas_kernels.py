@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -57,9 +58,83 @@ def complex_dense_ref(x_iq: torch.Tensor, wr: torch.Tensor,
 @functools.cache
 def _complex_dense_fn():
     fn = cuda_build.load("complex_dense").complex_dense_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# the persistent kernel's layout (csrc/complex_dense.cu), which its plan
+# sizes: 64 features a work item, a ring of 3 x tiles of up to 32 rows
+# behind 128 bytes of mbarriers, at most 220 KB of shared memory a block
+CD_FT, CD_NST, CD_BAR_BYTES = 64, 3, 128
+CD_SMEM_BUDGET = 220 * 1024
+CD_KC_MAX = 192             # weight rows a block holds (96 KB)
+
+
+class ComplexDensePlan(NamedTuple):
+    rows_per_tile: int      # 0: K does not fit
+    k_chunk: int            # weight rows staged at once (K when resident)
+    stage_elems: int        # IQ pairs a ring stage holds
+    smem_bytes: int
+    f_tiles: int
+    row_tiles: int
+    grid: int
+
+
+@functools.cache
+def _cd_stage(k: int) -> tuple[int, int, int, int]:
+    """(rows per item, weight rows staged at once, IQ pairs a ring stage,
+    shared bytes) for K = k: the largest of 32..2 rows whose ring of 3 x
+    tiles fits beside the weight, (0, ...) if none does."""
+    kc = min(k, CD_KC_MAX)
+    for rt in (32, 16, 8, 4, 2):
+        stage = (rt * k + 1) // 2 * 2
+        smem = CD_BAR_BYTES + 8 * kc * CD_FT + 8 * CD_NST * stage
+        if smem <= CD_SMEM_BUDGET:
+            return rt, kc, stage, smem
+    return 0, kc, 0, 0
+
+
+@functools.lru_cache(maxsize=64)
+def complex_dense_plan(m: int, k: int, f: int, sms: int = 132,
+                       blocks_per_sm: int = 2) -> ComplexDensePlan:
+    """The persistent kernel's plan for x [m, k, 2] and w [k, f] on a card
+    of `sms` SMs holding `blocks_per_sm` blocks each: `_cd_stage`'s tile,
+    and a grid no larger than the card holds, cut to a multiple of the
+    feature tiles so a block keeps its weight."""
+    rt, kc, stage, smem = _cd_stage(k)
+    f_tiles = -(-f // CD_FT)
+    row_tiles = -(-m // rt) if rt else 0
+    grid = min(sms * blocks_per_sm, row_tiles * f_tiles)
+    if grid >= f_tiles:
+        grid -= grid % f_tiles
+    return ComplexDensePlan(rt, kc, stage, smem, f_tiles, row_tiles, grid)
+
+
+@functools.cache
+def _cd_occupancy(device: int, k_odd: bool, smem: int) -> tuple[int, int]:
+    """(SMs, blocks a SM holds) of the kernel for K's parity at `smem`
+    shared bytes on CUDA device `device`."""
+    fn = cuda_build.load("complex_dense").complex_dense_f32_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = fn(int(k_odd), smem, out)
+    if err != 0 or out[0] < 1:
+        raise RuntimeError(f"complex_dense occupancy query failed: CUDA "
+                           f"error {err}, {out[0]} blocks a SM")
+    return out[1], out[0]
+
+
+def complex_dense_launch_plan(m: int, k: int, f: int,
+                              device: int) -> ComplexDensePlan:
+    """The plan `complex_dense_kernel` launches for x [m, k, 2] and w
+    [k, f] (m, k, f > 0, K within the ring) on CUDA device `device`."""
+    smem = _cd_stage(k)[3]
+    return complex_dense_plan(m, k, f,
+                              *_cd_occupancy(device, k % 2 == 1, smem))
 
 
 def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
@@ -79,21 +154,32 @@ def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
             f"{tuple(wr.shape)}, wi {tuple(wi.shape)}; want [M, K, 2], "
             "[K, F], [K, F]")
     if not (x_iq.is_contiguous() and wr.is_contiguous()
-            and wi.is_contiguous()) or x_iq.data_ptr() % 8:
-        raise ValueError("complex_dense_kernel takes contiguous tensors "
-                         "(x aligned to its IQ pairs)")
+            and wi.is_contiguous()):
+        raise ValueError("complex_dense_kernel takes contiguous tensors")
+    if x_iq.data_ptr() % 16:
+        raise ValueError("complex_dense_kernel: x must start on a 16-byte "
+                         "boundary (its row tiles arrive by bulk copies)")
     m, k, _ = x_iq.shape
     f = wr.shape[1]
     if max(m, k, f) >= 2**31:
         raise ValueError("complex_dense_kernel: sizes overflow int32")
+    if m and f and _cd_stage(k)[0] == 0:
+        raise ValueError(f"complex_dense_kernel: K = {k} rows of x do not "
+                         "fit a block's shared memory")
     y = torch.empty(m, f, 2, device=x_iq.device, dtype=torch.float32)
     if m == 0 or f == 0:    # an empty grid is an invalid launch
         return y
-    with torch.cuda.device(x_iq.device):
+    if k == 0:              # an empty sum
+        return y.zero_()
+    dev = x_iq.device.index
+    plan = complex_dense_launch_plan(m, k, f, dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _complex_dense_fn()(x_iq.data_ptr(), wr.data_ptr(),
                                   wi.data_ptr(), y.data_ptr(), m, k, f,
-                                  stream)
+                                  plan.rows_per_tile, plan.k_chunk,
+                                  plan.stage_elems, plan.smem_bytes,
+                                  plan.grid, stream)
     if err != 0:
         raise RuntimeError(f"complex_dense kernel launch failed: CUDA error "
                            f"{err}")
@@ -133,7 +219,10 @@ def complex_dense(x_iq: torch.Tensor, wr: torch.Tensor,
     counterpart of JAX's `complex_dense_iq`."""
     lead = x_iq.shape[:-2]
     k = x_iq.shape[-2]
-    y = ComplexDenseFn.apply(x_iq.reshape(-1, k, 2).contiguous(), wr, wi)
+    x = x_iq.reshape(-1, k, 2).contiguous()
+    if x.is_cuda and x.data_ptr() % 16:    # an offset view: the kernel's
+        x = x.clone()                      # bulk copies need 16 bytes
+    y = ComplexDenseFn.apply(x, wr, wi)
     return y.reshape(*lead, wr.shape[1], 2)
 
 

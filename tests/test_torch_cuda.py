@@ -25,7 +25,10 @@ def cuda():
 
 
 @pytest.mark.parametrize("m,k,f", [(1968 * 7, 80, 64), (1001, 77, 50),
-                                   (1, 1, 1), (130, 33, 129)])
+                                   (1, 1, 1), (130, 33, 129),
+                                   (210000, 64, 64), (511, 64, 64),
+                                   (2047, 33, 64), (300, 400, 100),
+                                   (77, 385, 70)])
 def test_complex_dense_kernel_matches_plain_version(cuda, m, k, f):
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn(m, k, 2, device=cuda, generator=g)
@@ -48,6 +51,38 @@ def test_complex_dense_kernel_rejects_bad_input(cuda):
         tpk.complex_dense_kernel(x.transpose(0, 1), w, w)
     with pytest.raises(ValueError):
         tpk.complex_dense_kernel(x, w[:8], w[:8])
+
+
+def test_complex_dense_kernel_rejects_misaligned_input(cuda):
+    """A contiguous view 8 bytes into its storage: the kernel's bulk copies
+    need 16-byte alignment, so its wrapper raises; the autograd op copies
+    such a view and goes through the kernel."""
+    base = torch.randn(7 * 33 * 2 + 2, device=cuda)
+    x = base[2:].view(7, 33, 2)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    w = torch.randn(33, 64, device=cuda)
+    with pytest.raises(ValueError):
+        tpk.complex_dense_kernel(x, w, w)
+    before = tpk.complex_dense_kernel.launches
+    y = tpk.complex_dense(x, w, w)
+    torch.cuda.synchronize()
+    assert tpk.complex_dense_kernel.launches == before + 1
+    torch.testing.assert_close(y, tpk.complex_dense_ref(x, w, w), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_complex_dense_kernel_at_the_largest_k(cuda):
+    """K = 2,642, the most a ring of three 2-row tiles holds beside the
+    weight's 192-row chunk, matches the plain version; one more raises."""
+    g = torch.Generator(device=cuda).manual_seed(2642)
+    x = torch.randn(37, 2643, 2, device=cuda, generator=g)
+    w = torch.randn(2643, 70, device=cuda, generator=g) / 2643 ** 0.5
+    xs, ws = x[:, :2642].contiguous(), w[:2642].contiguous()
+    torch.testing.assert_close(tpk.complex_dense_kernel(xs, ws, ws),
+                               tpk.complex_dense_ref(xs, ws, ws),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        tpk.complex_dense_kernel(x, w, w)
 
 
 @pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
@@ -104,25 +139,44 @@ def test_fused_synth_kernel_matches_plain_version(cuda, channel, nbits, n,
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("nbits,dtype", [(1, "float32"), (4, "float32"),
-                                         (1, "bfloat16"), (3, "bfloat16")])
-def test_fused_model_kernel_matches_plain_version(cuda, nbits, dtype):
+def _model_case(cuda, nbits, n, sps, d, seed, nfilter=64):
+    """Receiver parameters (init plus noise), raw planes, an affine and
+    symbol indices at n frames of 7 symbols of `sps` samples."""
     from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
-    from dl_ofdm_tpu_torch.ops import fused_model as tfm
-    n, S, P = 50, 7, 80
-    g = torch.Generator(device=cuda).manual_seed(nbits)
-    rx = DCCNReceiver(nbits=nbits, nfft=64, cp_len=16, nfilter=64,
-                      frame_size=320).to(cuda)
+    S = 7
+    nfft = 64 if sps <= 80 else 128
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rx = DCCNReceiver(nbits=nbits, nfft=nfft, cp_len=sps - nfft,
+                      nfilter=nfilter, frame_size=d).to(cuda)
     rx.reset_parameters(g)
     params = {k: v.detach() + 0.05 * torch.randn(v.shape, device=cuda,
                                                   generator=g)
               for k, v in rx.state_dict().items()}
-    planes = [torch.randn(n, S * P, device=cuda, generator=g)
+    planes = [torch.randn(n, S * sps, device=cuda, generator=g)
               for _ in range(4)]
-    c = 0.5 + torch.rand(6, S * P, device=cuda, generator=g)
-    idx = torch.randint(0, 2 ** nbits, (n, 320), device=cuda, generator=g,
+    c = 0.5 + torch.rand(6, S * sps, device=cuda, generator=g)
+    idx = torch.randint(0, 2 ** nbits, (n, d), device=cuda, generator=g,
                         dtype=torch.int32)
-    spec = tfm.ModelSpec(nsymbol=S, sps=P, nfilter=64, frame_size=320,
+    return params, planes, c, idx
+
+
+@pytest.mark.parametrize("nbits,dtype,n,sps,d,nfilter", [
+    (1, "float32", 50, 80, 320, 64), (4, "float32", 50, 80, 320, 64),
+    (1, "bfloat16", 50, 80, 320, 64), (3, "bfloat16", 50, 80, 320, 64),
+    (2, "bfloat16", 1, 80, 320, 64), (4, "bfloat16", 1001, 80, 320, 64),
+    (2, "bfloat16", 1001, 137, 640, 64), (4, "bfloat16", 1, 137, 640, 64),
+    (2, "bfloat16", 1001, 80, 320, 30), (1, "bfloat16", 77, 137, 322, 33),
+    (3, "float32", 77, 137, 322, 33)])
+def test_fused_model_kernel_matches_plain_version(cuda, nbits, dtype, n, sps,
+                                                  d, nfilter):
+    """bf16 on the tensor cores, float32 on the FMA units; sps 137 (nfft
+    128 without the long CP) pads the bf16 input's rows to 280, nfilter
+    30 and 33 each symbol's 2F columns to 64 and 72, and D 322 de's 644
+    columns to 648."""
+    from dl_ofdm_tpu_torch.ops import fused_model as tfm
+    params, planes, c, idx = _model_case(cuda, nbits, n, sps, d, nbits,
+                                         nfilter)
+    spec = tfm.ModelSpec(nsymbol=7, sps=sps, nfilter=nfilter, frame_size=d,
                          nbits=nbits, matmul_dtype=dtype)
     before = tfm.dccn_fused_grads_kernel.launches
     gk, cek, confk, ek = tfm.dccn_fused_grads_kernel(
@@ -144,13 +198,54 @@ def test_fused_model_kernel_matches_plain_version(cuda, nbits, dtype):
     assert torch.equal(confk, confp)
 
 
-def test_train_step_fused_on_card(cuda):
+def test_fused_model_kernel_is_deterministic(cuda):
+    """Split-K partials summed in a fixed order: two calls of the bf16
+    kernel on the same inputs give bit-identical gradients and CE."""
+    from dl_ofdm_tpu_torch.ops import fused_model as tfm
+    params, planes, c, idx = _model_case(cuda, 1, 9362, 80, 320, 7)
+    spec = tfm.ModelSpec(nsymbol=7, sps=80, nfilter=64, frame_size=320,
+                         nbits=1, matmul_dtype="bfloat16")
+    g1, ce1, conf1 = tfm.dccn_fused_grads_kernel(spec, 9362, params, *planes,
+                                                 c, idx)
+    g2, ce2, conf2 = tfm.dccn_fused_grads_kernel(spec, 9362, params, *planes,
+                                                 c, idx)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g1[k], g2[k]) for k in tfm.PARAM_KEYS)
+    assert torch.equal(ce1, ce2) and torch.equal(conf1, conf2)
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+@pytest.mark.parametrize("m,n,k,splits", [(200, 136, 296, 1),
+                                          (640, 896, 2000, 3), (8, 8, 8, 1)])
+def test_tensor_core_gemm_layouts(cuda, a_mn, b_mn, m, n, k, splits):
+    """Each operand layout of the wgmma GEMM (K- or MN-major A and B, TMA
+    boxes and shared-memory descriptors alike) against a float64 product
+    of the same bf16 values; ragged tiles on every edge."""
+    from dl_ofdm_tpu_torch.ops import fused_model as tfm
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(m, k, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(n, k, device=cuda, generator=g).to(torch.bfloat16)
+    got = tfm.tensor_core_gemm_check(
+        a.T.contiguous() if a_mn else a, b.T.contiguous() if b_mn else b,
+        a_mn, b_mn, splits).sum(0)
+    torch.cuda.synchronize()
+    want = (a.double() @ b.double().T).float()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * k ** 0.5 * scale
+
+
+@pytest.mark.parametrize("nfilter", [64, 30])
+def test_train_step_fused_on_card(cuda, nfilter):
+    """Both kernels in one step, bf16 GEMMs by default; nfilter 30 (2F no
+    multiple of 8) takes the same route on padded pitches."""
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
     from dl_ofdm_tpu_torch.ops import fused_model as tfm
     from dl_ofdm_tpu_torch.ops import fused_synth as tfs
     from dl_ofdm_tpu_torch.train.loop import Trainer
-    tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=700),
-                 channel="ETU")
+    tr = Trainer(OFDMConfig(nbits=1, nfilter=nfilter),
+                 TrainConfig(batch_size=700), channel="ETU")
+    assert tr._fused_model_spec.matmul_dtype == "bfloat16"
     assert tr._use_fused_model
     g = torch.Generator(device=cuda).manual_seed(0)
     state = tr.init_state(g)

@@ -30,6 +30,12 @@
 //     next tiles load while this one computes.  A copy needs a size that
 //     is a multiple of 16, so the last 8 bytes of a ragged final tile (odd
 //     rows x odd K) are loaded by an ordinary load;
+//   * past K = 2,642 not even a ring of three 2-row tiles fits beside the
+//     weight chunk, so x is streamed in K chunks as the weight is: each
+//     chunk of a 32-row tile ([32, kc] IQ pairs, 48 KB) comes in by 8-byte
+//     `cp.async`s, one an IQ pair, which take any K and any alignment (a
+//     row's chunk starts on an odd 8 bytes when K is odd), in flight while
+//     the block stages the weight chunk beside it.  No K is refused;
 //   * each thread keeps 8 rows x 2 features of complex accumulators; a
 //     warp's x reads are broadcasts of one address and its w reads 512
 //     contiguous bytes (no bank conflict), and with K even a row's IQ pairs
@@ -115,11 +121,64 @@ __device__ __forceinline__ void cmac(float (&accr)[8][2], float (&acci)[8][2],
   }
 }
 
+// 8 bytes from global to shared memory, asynchronously (cp.async, not the
+// bulk copy: any 8-byte aligned address)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// the thread's 8 rows x 2 features over kn k's of one weight chunk: x rows
+// at xt + rows[i] * stride, the chunk's weight at wv (float2 pairs of two
+// features, FT / 2 float4 a k); with K even a row's IQ pairs are read two k
+// at a time as float4
+template <bool KPAIR>
+__device__ __forceinline__ void mac_chunk(float (&accr)[8][2],
+                                          float (&acci)[8][2],
+                                          const float2* xt, int stride,
+                                          const int (&rows)[8], int kn,
+                                          const float4* wv) {
+  if (KPAIR) {        // stride and kn even: 16-byte aligned k pairs
+    const float4* xv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      xv[i] = reinterpret_cast<const float4*>(
+          xt + static_cast<size_t>(rows[i]) * stride);
+#pragma unroll 2
+    for (int kk = 0; kk < kn; kk += 2) {
+      float4 p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i] = xv[i][kk / 2];
+      const float4 w0 = wv[kk * (FT / 2)], w1 = wv[(kk + 1) * (FT / 2)];
+      float2 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].x, p[i].y);
+      cmac(accr, acci, a, w0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].z, p[i].w);
+      cmac(accr, acci, a, w1);
+    }
+  } else {
+    const float2* xr[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      xr[i] = xt + static_cast<size_t>(rows[i]) * stride;
+#pragma unroll 4
+    for (int kk = 0; kk < kn; ++kk) {
+      float2 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = xr[i][kk];
+      cmac(accr, acci, a, wv[kk * (FT / 2)]);
+    }
+  }
+}
+
 // Thread (warp w, lane l): rows 8w .. 8w+7 of the item, features 2l and
 // 2l+1.  A warp's x reads are broadcasts of one address, its w reads 512
-// contiguous bytes; with K even a row's IQ pairs are read two k at a time
-// as float4.
-template <bool KPAIR>
+// contiguous bytes.  STREAMED (stage_elems < rt * K): one buffer of
+// [rt, kc] IQ pairs, refilled with each weight chunk, in place of the ring;
+// a template argument, so the ring's kernel is compiled without it.
+template <bool KPAIR, bool STREAMED>
 __global__ void __launch_bounds__(THREADS)
 complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
                      const float* __restrict__ wr,    // [K, F]
@@ -144,7 +203,7 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0)
+  if (tid == 0 && !STREAMED)
     for (int j = 0; j < NST && j < n_mine; ++j)
       issue_tile(x, xs + j * stage_elems, bars + j,
                  (blockIdx.x + j * gridDim.x) / f_tiles, rt, M, K);
@@ -170,6 +229,16 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
       const int kn = min(kc, K - k0);
       if (kc < K || ft != loaded_ft) {      // (re)stage the weight tile
         __syncthreads();
+        if (STREAMED) {   // this K chunk of the tile's rows, by cp.async
+          const int r0 = rtile * rt;
+          for (int e = tid; e < rt * kn; e += THREADS) {
+            const int r = e / kn, kk = e - r * kn;
+            if (r0 + r < M)
+              cp_async8(xs + r * kc + kk,
+                        x + static_cast<size_t>(r0 + r) * K + k0 + kk);
+          }
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        }
         for (int e = tid; e < kn * (FT / 4); e += THREADS) {
           const int kk = e / (FT / 4), c = (e - kk * (FT / 4)) * 4;
           const int f = ft * FT + c;
@@ -190,47 +259,20 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
           dst[0] = make_float4(r.x, q.x, r.y, q.y);
           dst[1] = make_float4(r.z, q.z, r.w, q.w);
         }
+        if (STREAMED) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         __syncthreads();
         loaded_ft = ft;
       }
-      if (k0 == 0) mbar_wait(smem_u32(bars + s), (j / NST) & 1);
       const float4* wv = reinterpret_cast<const float4*>(ws) + lane;
-      if (KPAIR) {        // k0, kn and K even: 16-byte aligned k pairs
-        const float4* xv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          xv[i] = reinterpret_cast<const float4*>(
-              xt + static_cast<size_t>(rows[i]) * K + k0);
-#pragma unroll 2
-        for (int kk = 0; kk < kn; kk += 2) {
-          float4 p[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) p[i] = xv[i][kk / 2];
-          const float4 w0 = wv[kk * (FT / 2)], w1 = wv[(kk + 1) * (FT / 2)];
-          float2 a[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].x, p[i].y);
-          cmac(accr, acci, a, w0);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].z, p[i].w);
-          cmac(accr, acci, a, w1);
-        }
+      if (STREAMED) {
+        mac_chunk<KPAIR>(accr, acci, xs, kc, rows, kn, wv);
       } else {
-        const float2* xr[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          xr[i] = xt + static_cast<size_t>(rows[i]) * K + k0;
-#pragma unroll 4
-        for (int kk = 0; kk < kn; ++kk) {
-          float2 a[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = xr[i][kk];
-          cmac(accr, acci, a, wv[kk * (FT / 2)]);
-        }
+        if (k0 == 0) mbar_wait(smem_u32(bars + s), (j / NST) & 1);
+        mac_chunk<KPAIR>(accr, acci, xt + k0, K, rows, kn, wv);
       }
     }
     __syncthreads();                        // every read of stage s is done
-    if (tid == 0 && j + NST < n_mine)
+    if (tid == 0 && !STREAMED && j + NST < n_mine)
       issue_tile(x, xs + s * stage_elems, bars + s,
                  (item + NST * gridDim.x) / f_tiles, rt, M, K);
 
@@ -255,19 +297,24 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
 using KernelFn = void (*)(const float2*, const float*, const float*, float2*,
                          int, int, int, int, int, int, int, int);
 
-KernelFn kernel_for(int K) {
-  return K % 2 == 0 ? complex_dense_kernel<true> : complex_dense_kernel<false>;
+KernelFn kernel_for(int K, bool streamed) {
+  if (streamed)
+    return K % 2 == 0 ? complex_dense_kernel<true, true>
+                      : complex_dense_kernel<false, true>;
+  return K % 2 == 0 ? complex_dense_kernel<true, false>
+                    : complex_dense_kernel<false, false>;
 }
 
-// let the kernel for K take SMEM_MAX shared bytes on the current device
-cudaError_t allow_smem(int K) {
-  static unsigned long long done[2] = {0, 0};   // devices, by bit
+// let the kernel for K (and mode) take SMEM_MAX shared bytes on the current
+// device
+cudaError_t allow_smem(int K, bool streamed) {
+  static unsigned long long done[4] = {0, 0, 0, 0};   // devices, by bit
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  unsigned long long& d = done[K % 2];
+  unsigned long long& d = done[K % 2 + 2 * streamed];
   if (d >> (dev & 63) & 1) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel_for(K),
+  err = cudaFuncSetAttribute(kernel_for(K, streamed),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_MAX);
   if (err == cudaSuccess) d |= 1ull << (dev & 63);
@@ -278,36 +325,45 @@ cudaError_t allow_smem(int K) {
 
 // y [M, F] = x [M, K] . (wr + i wi) [K, F] with the caller's plan: rt rows
 // per item, kc weight rows staged at once, stage_elems IQ pairs a ring
-// stage, smem shared bytes, grid blocks
+// stage (or, below rt * K, the streamed mode's one [rt, kc] buffer), smem
+// shared bytes, grid blocks
 extern "C" int complex_dense_f32(const void* x, const void* wr, const void* wi,
                                  void* y, int M, int K, int F, int rt, int kc,
                                  int stage_elems, int smem, int grid,
                                  void* stream) {
-  const long long need = BAR_BYTES + 8LL * kc * FT + 8LL * NST * stage_elems;
+  // ring mode: NST stages of whole row tiles; streamed mode (a stage
+  // smaller than a tile): one buffer of [rt, kc] IQ pairs, kc < K
+  const bool streamed = stage_elems < static_cast<long long>(rt) * K;
+  const long long need = BAR_BYTES + 8LL * kc * FT +
+                         8LL * (streamed ? 1 : NST) * stage_elems;
   if (M <= 0 || K <= 0 || F <= 0 || grid <= 0 || rt < 1 || rt > RT_MAX ||
-      kc < 1 || kc > K || stage_elems < static_cast<long long>(rt) * K ||
+      kc < 1 || kc > K || (streamed && (kc == K || stage_elems <
+                                        static_cast<long long>(rt) * kc)) ||
       stage_elems % 2 || smem < need || smem > SMEM_MAX ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(K);
+  const cudaError_t err = allow_smem(K, streamed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int f_tiles = (F + FT - 1) / FT;
-  kernel_for(K)<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel_for(K, streamed)<<<grid, THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(x), static_cast<const float*>(wr),
       static_cast<const float*>(wi), static_cast<float2*>(y), M, K, F, rt, kc,
       stage_elems, f_tiles, (M + rt - 1) / rt * f_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks of the kernel for K, at `smem` shared bytes, that one SM of the
-// current device holds (out[0]), and the device's SMs (out[1])
-extern "C" int complex_dense_f32_blocks_per_sm(int K, int smem, int* out) {
+// blocks of the kernel for K (streamed or not), at `smem` shared bytes,
+// that one SM of the current device holds (out[0]), and the device's SMs
+// (out[1])
+extern "C" int complex_dense_f32_blocks_per_sm(int K, int streamed, int smem,
+                                               int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = allow_smem(K);
+  if (err == cudaSuccess) err = allow_smem(K, streamed);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_for(K),
-                                                        THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel_for(K, streamed), THREADS, smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount,
                                  dev);

@@ -40,6 +40,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -477,7 +478,8 @@ class _SynthArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in (
             "n_frames", "nbits", "nsymbol", "sps", "frame_size",
             "n_classes", "taps", "fir_u", "off_u", "do_fir", "nfft",
-            "mobile", "cyc_len", "ss", "want_h", "rows", "stats_blocks")]
+            "mobile", "cyc_len", "ss", "want_h", "real_tab", "cp", "rows",
+            "threads", "halves", "smem", "grid")]
 
 
 @functools.cache
@@ -486,8 +488,9 @@ def _synth_lib():
     lib.fused_synth_f32.argtypes = [ctypes.POINTER(_SynthArgs),
                                     ctypes.c_void_p]
     lib.fused_synth_f32.restype = ctypes.c_int
-    lib.fused_synth_rows.argtypes = [ctypes.POINTER(_SynthArgs)]
-    lib.fused_synth_rows.restype = ctypes.c_int
+    lib.fused_synth_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+    lib.fused_synth_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -520,12 +523,23 @@ def _spec_consts(spec: SynthSpec, device: torch.device) -> dict:
         hit = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in arrs.items()}
         hit["spec"] = spec         # keeps id(spec) from being reused
+        hit["cp"] = _cyclic_prefix(spec)
         _CONSTS[key] = hit
     return hit
 
 
+def _cyclic_prefix(spec: SynthSpec) -> int:
+    """The symbol's first sps - nfft samples where the TX operator's and
+    the pilots' columns repeat its last ones exactly (the kernel then
+    copies them), else 0."""
+    cp, n = spec.sps - spec.nfft, spec.nfft
+    same = cp > 0 and all(np.array_equal(m[:, :cp], m[:, n:n + cp]) for m in (
+        spec.w_r, spec.w_i, spec.bias_r, spec.bias_i))
+    return cp if same else 0
+
+
 def _synth_args(spec: SynthSpec, n_frames: int, want_h: bool) -> _SynthArgs:
-    """The kernel's arguments without their pointers."""
+    """The kernel's arguments without their pointers and plan."""
     return _SynthArgs(
         jakes_c1=float(np.sqrt(1.0 / SS)), n_frames=n_frames,
         nbits=spec.nbits, nsymbol=spec.nsymbol, sps=spec.sps,
@@ -533,26 +547,122 @@ def _synth_args(spec: SynthSpec, n_frames: int, want_h: bool) -> _SynthArgs:
         taps=spec.taps, fir_u=spec.fir_u, off_u=spec.off_u,
         do_fir=int(spec.do_fir), nfft=spec.nfft, mobile=int(spec.mobile),
         cyc_len=len(spec.dop_cycle) if spec.mobile else 0, ss=SS,
-        want_h=int(want_h))
+        want_h=int(want_h), real_tab=int(not spec.sym_table[:, 1].any()))
 
 
-def rows_per_block(spec: SynthSpec, want_h: bool = False) -> int:
-    """Frame rows a block of the CUDA kernel takes for `spec`: 16, or fewer
-    where the frame's planes would not fit in a block's shared memory."""
-    args = _synth_args(spec, 1, want_h)
-    rows = _synth_lib().fused_synth_rows(ctypes.byref(args))
-    if rows < 1:
+# the kernel's layout (csrc/fused_synth.cu), which its plan sizes
+SYNTH_THREADS = 288           # a block's, two a SM
+SYNTH_ROWS = (8, 4, 2, 1)     # rows a group, the most that fit
+SYNTH_FIR_CHUNK = 8           # FIR taps a window of the padded row
+SYNTH_SMEM_MAX = 232448       # shared memory a Hopper block can have
+SYNTH_SMEM_TWO = 115712       # what lets two blocks share an SM's 228 KB
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _halves(spec: SynthSpec, rows: int, threads: int) -> int:
+    """Ways stage 4 splits a group's rows: as many as the block's threads
+    hold the frame's column quads."""
+    return max(1, min(rows, threads // -(-spec.length // 4)))
+
+
+def synth_smem(spec: SynthSpec, rows: int,
+               threads: int = SYNTH_THREADS) -> int:
+    """Shared bytes of a block that takes `rows` rows a group: `layout` of
+    csrc/fused_synth.cu, region by region (the planes at the padded pitch,
+    or a mobile group's Jakes phases and bases if larger; the decoded
+    symbols' two planes for whole row quads; each thread half's [10, L]
+    sums; static and per-symbol gains, FIR kernels, the profile constants,
+    symbol starts)."""
+    s, length = spec.nsymbol, spec.length
+    l4c = -(-length // 4)
+    nch = -(-spec.fir_u // SYNTH_FIR_CHUNK)
+    pitch = 4 * l4c + SYNTH_FIR_CHUNK * nch
+    nsst, s1 = SS * spec.taps, (s if spec.mobile else 1)
+    p, taps, fir_u = spec.n_classes, spec.taps, spec.fir_u
+    mob = int(spec.mobile)
+    planes = max(2 * rows * pitch, mob * (2 * rows * nsst + 2 * nsst))
+    sizes = [4 * planes, 4 * 2 * -(-rows // 4) * 4 * spec.frame_size,
+             4 * _halves(spec, rows, threads) * 10 * length,
+             8 * rows * taps, 8 * mob * rows * s * taps,
+             8 * rows * s1 * fir_u, 8 * 16, 4 * p * taps,
+             4 * p * taps * fir_u, 4 * p * fir_u, 4 * (s + 1)]
+    return sum(_align16(n) for n in sizes)
+
+
+class SynthPlan(NamedTuple):
+    rows: int                  # frame rows a group
+    threads: int               # a block's
+    halves: int                # stage 4 splits a group's rows this many ways
+    smem_bytes: int
+    groups: int
+    grid: int                  # blocks, and the partials' leading dimension
+
+
+@functools.lru_cache(maxsize=64)
+def synth_plan(spec: SynthSpec, n_frames: int, sms: int = 132,
+               blocks_per_sm: int | None = None) -> SynthPlan:
+    """The kernel's plan for `n_frames` rows of `spec`: 288 threads (more
+    for frames past 1,152 samples, one a column quad), the most rows a
+    group (8, 4, 2, 1) whose shared memory lets two blocks share an SM, or
+    failing that fits one block; the rows split between as many thread
+    halves as the column quads allow; a grid of as many blocks as the card
+    holds (`blocks_per_sm`: two where the shared memory allows, unless
+    given), no more than the groups.  Raises where one row does not fit."""
+    l4c = -(-spec.length // 4)
+    threads = max(SYNTH_THREADS, -(-l4c // 32) * 32)
+    if threads > 1024:
+        raise ValueError(f"fused_synthesize_kernel: frames of {spec.length} "
+                         "samples exceed 4,096")
+    sizes = {r: synth_smem(spec, r, threads) for r in SYNTH_ROWS}
+    two = [r for r in SYNTH_ROWS if sizes[r] <= SYNTH_SMEM_TWO]
+    one = [r for r in SYNTH_ROWS if sizes[r] <= SYNTH_SMEM_MAX]
+    if threads == SYNTH_THREADS and two:
+        rows = two[0]
+    elif one:
+        rows = one[0]
+    else:
         raise ValueError("fused_synthesize_kernel: one frame row of this "
                          "spec does not fit in a block's shared memory")
-    return rows
+    halves = _halves(spec, rows, threads)
+    groups = -(-max(n_frames, 1) // rows)
+    if blocks_per_sm is None:
+        blocks_per_sm = 2 if (threads == SYNTH_THREADS
+                              and sizes[rows] <= SYNTH_SMEM_TWO) else 1
+    return SynthPlan(rows, threads, halves, sizes[rows], groups,
+                     min(groups, sms * blocks_per_sm))
+
+
+@functools.cache
+def _synth_occupancy(device: int, threads: int, smem: int) -> tuple[int, int]:
+    """(SMs, blocks a SM holds) of the kernel at `threads` threads and
+    `smem` shared bytes on CUDA device `device`."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = _synth_lib().fused_synth_blocks_per_sm(threads, smem, out)
+    if err != 0 or out[0] < 1:
+        raise RuntimeError(f"fused_synth occupancy query failed: CUDA error "
+                           f"{err}, {out[0]} blocks a SM")
+    return out[1], out[0]
+
+
+def synth_launch_plan(spec: SynthSpec, n_frames: int,
+                      device: int) -> SynthPlan:
+    """The plan `fused_synthesize_kernel` launches on CUDA device `device`
+    (its stats hold `grid` partials)."""
+    plan = synth_plan(spec, n_frames)
+    return synth_plan(spec, n_frames, *_synth_occupancy(
+        device, plan.threads, plan.smem_bytes))
 
 
 def fused_synthesize_kernel(spec: SynthSpec, seeds: torch.Tensor,
                             std: torch.Tensor, want_h: bool = False):
     """Launch the CUDA kernel for `len(std)` frames: seeds int64 [2] and std
     float32 [B] on one CUDA device.  Returns what `fused_synthesize_ref`
-    returns, with stats [ceil(B / rows_per_block), 10, S*sps] per-block
-    partial sums."""
+    returns, with stats [grid, 10, S*sps] per-block partial sums (`grid`
+    of `synth_launch_plan`)."""
     if not (seeds.is_cuda and std.device == seeds.device):
         raise ValueError("fused_synthesize_kernel: seeds and std must be on "
                          "one CUDA device")
@@ -568,12 +678,10 @@ def fused_synthesize_kernel(spec: SynthSpec, seeds: torch.Tensor,
     dev = std.device
     f32 = dict(device=dev, dtype=torch.float32)
     c = _spec_consts(spec, dev)
-    rows = c.get(("rows", want_h))
-    if rows is None:
-        rows = c[("rows", want_h)] = rows_per_block(spec, want_h)
+    plan = synth_launch_plan(spec, b, dev.index)
     idx = torch.empty(b, d, device=dev, dtype=torch.int32)
     yr, yi, nr, ni = (torch.empty(b, l, **f32) for _ in range(4))
-    stats = torch.empty(-(-b // rows), 10, l, **f32)
+    stats = torch.empty(plan.grid if b else 0, 10, l, **f32)
     h = None
     if want_h:
         h = torch.empty((b, spec.nsymbol, spec.nfft, 2) if spec.mobile
@@ -591,7 +699,10 @@ def fused_synthesize_kernel(spec: SynthSpec, seeds: torch.Tensor,
                     ("yi", yi), ("nr", nr), ("ni", ni), ("h", h),
                     ("stats", stats)):
         setattr(args, name, None if t is None else t.data_ptr())
-    args.rows, args.stats_blocks = rows, stats.shape[0]
+    args.cp = c["cp"]
+    args.rows, args.threads, args.halves = plan.rows, plan.threads, \
+        plan.halves
+    args.smem, args.grid = plan.smem_bytes, plan.grid
     with torch.cuda.device(dev):
         err = _synth_lib().fused_synth_f32(
             ctypes.byref(args), torch.cuda.current_stream().cuda_stream)

@@ -66,34 +66,41 @@ def _complex_dense_fn():
 
 # the persistent kernel's layout (csrc/complex_dense.cu), which its plan
 # sizes: 64 features a work item, a ring of 3 x tiles of up to 32 rows
-# behind 128 bytes of mbarriers, at most 220 KB of shared memory a block
+# behind 128 bytes of mbarriers, at most 220 KB of shared memory a block;
+# past the ring's K, one [32, 192] buffer of x streamed in K chunks
 CD_FT, CD_NST, CD_BAR_BYTES = 64, 3, 128
 CD_SMEM_BUDGET = 220 * 1024
 CD_KC_MAX = 192             # weight rows a block holds (96 KB)
+CD_RT_STREAMED = 32         # rows of a tile in the streamed mode
 
 
 class ComplexDensePlan(NamedTuple):
-    rows_per_tile: int      # 0: K does not fit
+    rows_per_tile: int
     k_chunk: int            # weight rows staged at once (K when resident)
-    stage_elems: int        # IQ pairs a ring stage holds
+    stage_elems: int        # IQ pairs a ring stage holds (streamed: the
+                            # one buffer's, rows_per_tile x k_chunk)
     smem_bytes: int
     f_tiles: int
     row_tiles: int
     grid: int
+    streamed: bool          # x in K chunks, not whole tiles in a ring
 
 
 @functools.cache
 def _cd_stage(k: int) -> tuple[int, int, int, int]:
-    """(rows per item, weight rows staged at once, IQ pairs a ring stage,
-    shared bytes) for K = k: the largest of 32..2 rows whose ring of 3 x
-    tiles fits beside the weight, (0, ...) if none does."""
+    """(rows per item, weight rows staged at once, IQ pairs a stage, shared
+    bytes) for K = k: the largest of 32..2 rows whose ring of 3 x tiles
+    fits beside the weight; past that (K > 2,642), 32-row tiles streamed
+    in K chunks through one [32, 192] buffer."""
     kc = min(k, CD_KC_MAX)
     for rt in (32, 16, 8, 4, 2):
         stage = (rt * k + 1) // 2 * 2
         smem = CD_BAR_BYTES + 8 * kc * CD_FT + 8 * CD_NST * stage
         if smem <= CD_SMEM_BUDGET:
             return rt, kc, stage, smem
-    return 0, kc, 0, 0
+    stage = CD_RT_STREAMED * kc
+    return (CD_RT_STREAMED, kc, stage,
+            CD_BAR_BYTES + 8 * kc * CD_FT + 8 * stage)
 
 
 @functools.lru_cache(maxsize=64)
@@ -105,23 +112,25 @@ def complex_dense_plan(m: int, k: int, f: int, sms: int = 132,
     feature tiles so a block keeps its weight."""
     rt, kc, stage, smem = _cd_stage(k)
     f_tiles = -(-f // CD_FT)
-    row_tiles = -(-m // rt) if rt else 0
+    row_tiles = -(-m // rt)
     grid = min(sms * blocks_per_sm, row_tiles * f_tiles)
     if grid >= f_tiles:
         grid -= grid % f_tiles
-    return ComplexDensePlan(rt, kc, stage, smem, f_tiles, row_tiles, grid)
+    return ComplexDensePlan(rt, kc, stage, smem, f_tiles, row_tiles, grid,
+                            stage < rt * k)
 
 
 @functools.cache
-def _cd_occupancy(device: int, k_odd: bool, smem: int) -> tuple[int, int]:
-    """(SMs, blocks a SM holds) of the kernel for K's parity at `smem`
-    shared bytes on CUDA device `device`."""
+def _cd_occupancy(device: int, k_odd: bool, streamed: bool,
+                  smem: int) -> tuple[int, int]:
+    """(SMs, blocks a SM holds) of the kernel for K's parity and mode at
+    `smem` shared bytes on CUDA device `device`."""
     fn = cuda_build.load("complex_dense").complex_dense_f32_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        err = fn(int(k_odd), smem, out)
+        err = fn(int(k_odd), int(streamed), smem, out)
     if err != 0 or out[0] < 1:
         raise RuntimeError(f"complex_dense occupancy query failed: CUDA "
                            f"error {err}, {out[0]} blocks a SM")
@@ -131,10 +140,10 @@ def _cd_occupancy(device: int, k_odd: bool, smem: int) -> tuple[int, int]:
 def complex_dense_launch_plan(m: int, k: int, f: int,
                               device: int) -> ComplexDensePlan:
     """The plan `complex_dense_kernel` launches for x [m, k, 2] and w
-    [k, f] (m, k, f > 0, K within the ring) on CUDA device `device`."""
-    smem = _cd_stage(k)[3]
-    return complex_dense_plan(m, k, f,
-                              *_cd_occupancy(device, k % 2 == 1, smem))
+    [k, f] (m, k, f > 0) on CUDA device `device`."""
+    rt, _, stage, smem = _cd_stage(k)
+    return complex_dense_plan(m, k, f, *_cd_occupancy(
+        device, k % 2 == 1, stage < rt * k, smem))
 
 
 def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
@@ -163,9 +172,6 @@ def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
     f = wr.shape[1]
     if max(m, k, f) >= 2**31:
         raise ValueError("complex_dense_kernel: sizes overflow int32")
-    if m and f and _cd_stage(k)[0] == 0:
-        raise ValueError(f"complex_dense_kernel: K = {k} rows of x do not "
-                         "fit a block's shared memory")
     y = torch.empty(m, f, 2, device=x_iq.device, dtype=torch.float32)
     if m == 0 or f == 0:    # an empty grid is an invalid launch
         return y
@@ -253,7 +259,8 @@ class _FirArgs(ctypes.Structure):
     """`FirArgs` of csrc/fir_shift_accum.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p)
                 for n in ("xar", "xai", "hr", "hi", "yr", "yi")] + [
-        (n, ctypes.c_int) for n in ("B", "L", "F", "tile")]
+        (n, ctypes.c_int) for n in ("B", "L", "F", "tile", "rows", "threads",
+                                    "row_stride", "smem", "grid")]
 
 
 @functools.cache
@@ -262,15 +269,95 @@ def _fir_lib():
     lib.fir_shift_accum_f32.argtypes = [ctypes.POINTER(_FirArgs),
                                         ctypes.c_void_p]
     lib.fir_shift_accum_f32.restype = ctypes.c_int
-    lib.fir_shift_accum_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.fir_shift_accum_smem.restype = ctypes.c_longlong
+    lib.fir_shift_accum_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_void_p]
+    lib.fir_shift_accum_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-# outputs of a row that a block stages per chunk; a row of the sweep's 560
-# samples is one chunk
-FIR_TILE = 1024
-FIR_SMEM_MAX = 227 * 1024      # shared memory a Hopper block can have
+# the kernel's layout (csrc/fir_shift_accum.cu), which its plan sizes: 8
+# outputs a thread, rows staged from 8 samples before a unit's first
+# output, skewed (sample c at c + c // 8), a ring of two units a block
+FIR_V, FIR_PRE, FIR_NBUF = 8, 8, 2
+FIR_TILE_MAX = 2048            # outputs of a row a unit takes
+FIR_THREADS_MAX = 384
+FIR_ROWS_MAX = 64
+FIR_SMEM_MAX = 232448          # shared memory a Hopper block can have
+FIR_SMEM_TWO = 115712          # what lets two blocks share an SM's 228 KB
+
+
+class FirPlan(NamedTuple):
+    tile: int                  # outputs of a row a unit takes
+    rows: int                  # rows a unit takes
+    threads: int               # a block's: rows x ceil(tile / 8), to warps
+    row_stride: int            # floats of a staged (skewed) row
+    smem_bytes: int
+    units: int                 # row groups x chunks of a row
+    grid: int
+
+
+def _fir_row_stride(tile: int, f: int) -> int:
+    """Floats of one staged row: its samples skewed (c -> c + c // 8), the
+    pitch rounded up to 9 G (mod 32) for G = ceil(tile / 8) threads a
+    row, so that a warp's loads hit 32 banks."""
+    g = -(-tile // FIR_V)
+    width = FIR_PRE + FIR_V * g + f - 1
+    skewed = width + (width - 1) // 8
+    return skewed + (9 * g - skewed) % 32
+
+
+def _fir_smem(rows: int, row_stride: int, f: int) -> int:
+    return FIR_NBUF * 4 * (2 * rows * row_stride + 2 * rows * f)
+
+
+@functools.lru_cache(maxsize=64)
+def fir_plan(b: int, l_out: int, f: int, sms: int = 132,
+             blocks_per_sm: int = 2) -> FirPlan:
+    """The kernel's plan for B rows of L outputs and F taps on a card of
+    `sms` SMs holding `blocks_per_sm` blocks each: the rows a unit takes
+    that leave the fewest of a block's threads idle (the most on a tie)
+    within 384 threads and half the shared memory, and a grid no larger
+    than the card holds.  Raises if one row's unit does not fit a block."""
+    tile = min(l_out, FIR_TILE_MAX)
+    g = -(-tile // FIR_V)
+    stride = _fir_row_stride(tile, f)
+    best = None
+    for rows in range(1, FIR_ROWS_MAX + 1):
+        threads = -(-rows * g // 32) * 32
+        smem = _fir_smem(rows, stride, f)
+        if threads > FIR_THREADS_MAX or (rows > 1 and smem > FIR_SMEM_TWO):
+            break
+        key = (rows * g / threads, rows)
+        if best is None or key > best[0]:
+            best = (key, rows, threads, smem)
+    _, rows, threads, smem = best
+    if smem > FIR_SMEM_MAX:
+        raise ValueError(f"fir_shift_accum_kernel: {f} taps do not fit a "
+                         "block's shared memory")
+    units = -(-b // rows) * -(-l_out // tile)
+    return FirPlan(tile, rows, threads, stride, smem, units,
+                   max(1, min(units, sms * blocks_per_sm)))
+
+
+@functools.cache
+def _fir_occupancy(device: int, threads: int, smem: int) -> tuple[int, int]:
+    """(SMs, blocks a SM holds) of the kernel at `threads` threads and
+    `smem` shared bytes on CUDA device `device`."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = _fir_lib().fir_shift_accum_blocks_per_sm(threads, smem, out)
+    if err != 0 or out[0] < 1:
+        raise RuntimeError(f"fir_shift_accum occupancy query failed: CUDA "
+                           f"error {err}, {out[0]} blocks a SM")
+    return out[1], out[0]
+
+
+def fir_launch_plan(b: int, l_out: int, f: int, device: int) -> FirPlan:
+    """The plan `fir_shift_accum_kernel` launches on CUDA device
+    `device`."""
+    plan = fir_plan(b, l_out, f)
+    return fir_plan(b, l_out, f, *_fir_occupancy(device, plan.threads,
+                                                 plan.smem_bytes))
 
 
 def fir_shift_accum_kernel(xar: torch.Tensor, xai: torch.Tensor,
@@ -298,19 +385,16 @@ def fir_shift_accum_kernel(xar: torch.Tensor, xai: torch.Tensor,
         raise ValueError("fir_shift_accum_kernel takes contiguous planes")
     if b * xar.shape[1] >= 2**31 or b * l_out >= 2**31:
         raise ValueError("fir_shift_accum_kernel: sizes overflow int32")
-    tile = min(l_out, FIR_TILE)
-    lib = _fir_lib()
-    if lib.fir_shift_accum_smem(f, tile) > FIR_SMEM_MAX:
-        raise ValueError(f"fir_shift_accum_kernel: {f} taps do not fit a "
-                         "block's shared memory")
     yr = torch.empty(b, l_out, device=xar.device, dtype=torch.float32)
     yi = torch.empty_like(yr)
     if b == 0:                  # an empty grid is an invalid launch
         return yr, yi
+    plan = fir_launch_plan(b, l_out, f, xar.device.index)
     args = _FirArgs(*(t.data_ptr() for t in (xar, xai, hr, hi, yr, yi)),
-                    b, l_out, f, tile)
+                    b, l_out, f, plan.tile, plan.rows, plan.threads,
+                    plan.row_stride, plan.smem_bytes, plan.grid)
     with torch.cuda.device(xar.device):
-        err = lib.fir_shift_accum_f32(
+        err = _fir_lib().fir_shift_accum_f32(
             ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fir_shift_accum kernel launch failed: CUDA "

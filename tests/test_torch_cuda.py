@@ -71,18 +71,21 @@ def test_complex_dense_kernel_rejects_misaligned_input(cuda):
                                rtol=1e-5)
 
 
-def test_complex_dense_kernel_at_the_largest_k(cuda):
+@pytest.mark.parametrize("k", [2642, 2643, 5000])
+def test_complex_dense_kernel_at_the_largest_k(cuda, k):
     """K = 2,642, the most a ring of three 2-row tiles holds beside the
-    weight's 192-row chunk, matches the plain version; one more raises."""
-    g = torch.Generator(device=cuda).manual_seed(2642)
-    x = torch.randn(37, 2643, 2, device=cuda, generator=g)
-    w = torch.randn(2643, 70, device=cuda, generator=g) / 2643 ** 0.5
-    xs, ws = x[:, :2642].contiguous(), w[:2642].contiguous()
-    torch.testing.assert_close(tpk.complex_dense_kernel(xs, ws, ws),
-                               tpk.complex_dense_ref(xs, ws, ws),
+    weight's 192-row chunk, and past it (K odd and even), where x streams
+    in K chunks: each matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(37, k, 2, device=cuda, generator=g)
+    wr, wi = (torch.randn(k, 70, device=cuda, generator=g) / k ** 0.5
+              for _ in range(2))
+    before = tpk.complex_dense_kernel.launches
+    y = tpk.complex_dense_kernel(x, wr, wi)
+    torch.cuda.synchronize()
+    assert tpk.complex_dense_kernel.launches == before + 1
+    torch.testing.assert_close(y, tpk.complex_dense_ref(x, wr, wi),
                                atol=1e-5, rtol=1e-5)
-    with pytest.raises(ValueError):
-        tpk.complex_dense_kernel(x, w, w)
 
 
 @pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
@@ -128,8 +131,8 @@ def test_fused_synth_kernel_matches_plain_version(cuda, channel, nbits, n,
     want = tfs.fused_synthesize_ref(spec, n, std, seeds=seeds, want_h=want_h)
     torch.cuda.synchronize()
     assert tfs.fused_synthesize_kernel.launches == before + 1
-    rows = tfs.rows_per_block(spec, want_h)
-    assert got[5].shape == (-(-n // rows), 10, spec.length)
+    plan = tfs.synth_launch_plan(spec, n, cuda.index or 0)
+    assert got[5].shape == (plan.grid, 10, spec.length)
     assert len(got) == len(want) == 6 + want_h
     assert torch.equal(got[0], want[0])
     for a, b in zip(got[1:5] + got[6:], want[1:5] + want[6:]):
@@ -137,6 +140,22 @@ def test_fused_synth_kernel_matches_plain_version(cuda, channel, nbits, n,
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     torch.testing.assert_close(got[5].sum(0), want[5][0], atol=1e-3,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [37, 9362])
+def test_fused_synth_kernel_gives_the_same_bits_twice(cuda, n):
+    """Each block walks a fixed set of row groups and sums them in a fixed
+    order: two calls on the same seeds give identical outputs, partial
+    sums included (mixRayleigh mobile with want_h: every branch)."""
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    spec = _synth_spec("mixRayleigh", 2, True)
+    seeds = torch.tensor([9, 2**31 + 7], dtype=torch.int64, device=cuda)
+    std = tfs.noise_std(torch.linspace(-5, 25, n, device=cuda))
+    got = [tfs.fused_synthesize_kernel(spec, seeds, std, want_h=True)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
 
 
 def _model_case(cuda, nbits, n, sps, d, seed, nfilter=64):
@@ -313,10 +332,14 @@ def test_philox_probe_kernel_matches_plain_version(cuda):
 
 
 @pytest.mark.parametrize("b,l,f", [(30000, 560, 13), (73, 560, 9),
-                                   (5, 1120, 1), (9, 40, 300)])
+                                   (5, 1120, 1), (9, 40, 300),
+                                   (37, 561, 13), (1001, 560, 40),
+                                   (3, 5000, 13)])
 def test_fir_shift_accum_kernel_matches_plain_version(cuda, b, l, f):
     """Same float32 operations in the same order (no contracted
-    multiply-adds): within 1e-6 of max |y|."""
+    multiply-adds): bit-equal, at the sweep's shape, odd rows (La = L + F
+    - 1 odd: rows start anywhere), taps past one register chunk, B not a
+    multiple of the rows a unit takes, and rows cut into chunks."""
     g = torch.Generator(device=cuda).manual_seed(b)
     xar, xai = (torch.randn(b, l + f - 1, device=cuda, generator=g)
                 for _ in range(2))
@@ -326,9 +349,7 @@ def test_fir_shift_accum_kernel_matches_plain_version(cuda, b, l, f):
     wr, wi = tpk.fir_shift_accum_ref(xar, xai, hr, hi, l)
     torch.cuda.synchronize()
     assert tpk.fir_shift_accum_kernel.launches == before + 1
-    scale = float(torch.maximum(wr.abs().max(), wi.abs().max()))
-    assert float((yr - wr).abs().max()) <= 1e-6 * scale
-    assert float((yi - wi).abs().max()) <= 1e-6 * scale
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
 
 
 def test_fir_shift_accum_kernel_rejects_bad_input(cuda):

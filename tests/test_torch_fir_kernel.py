@@ -73,3 +73,38 @@ def test_fir_same_iq_on_the_cpu_matches_jax(offsets, rng):
     got = tfir.fir_same_iq(torch.from_numpy(x), torch.from_numpy(h),
                            offsets).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# the sweep's and the curriculum's shapes, odd rows, long taps, rows cut
+# into chunks, a frame of nfft 128
+FIR_PLAN_SHAPES = [(30000, 560, 13), (73, 560, 9), (5, 1120, 1),
+                   (9, 40, 300), (37, 561, 13), (1001, 560, 40),
+                   (3, 5000, 13), (2340, 1120, 13), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("b,l,f", FIR_PLAN_SHAPES)
+def test_fir_plan_fits_a_block_and_fills_the_card(b, l, f):
+    """The CUDA kernel's launch plan: its units hold every row and output
+    once, a block's threads cover its rows' 8-output groups in whole warps
+    within 384, the double-buffered rows fit shared memory (two blocks a
+    SM where more than one row is staged), the skewed row pitch holds a
+    row and is 9 G mod 32, and the grid is as large as the card holds or
+    the units there are."""
+    plan = tpk.fir_plan(b, l, f)
+    assert plan.tile == min(l, tpk.FIR_TILE_MAX)
+    assert plan.tile == l or plan.tile % 8 == 0
+    g = -(-plan.tile // 8)
+    assert plan.threads % 32 == 0
+    assert plan.rows * g <= plan.threads <= tpk.FIR_THREADS_MAX
+    assert plan.threads - plan.rows * g < 32
+    chunks = -(-l // plan.tile)
+    assert plan.units == -(-b // plan.rows) * chunks
+    width = 8 + 8 * g + f - 1
+    assert plan.row_stride >= width + (width - 1) // 8
+    assert (plan.row_stride - 9 * g) % 32 == 0
+    assert plan.smem_bytes == 4 * tpk.FIR_NBUF * (
+        2 * plan.rows * plan.row_stride + 2 * plan.rows * f)
+    assert plan.smem_bytes <= 232448
+    if plan.rows > 1:           # two blocks, each with 1 KB reserved
+        assert 2 * (plan.smem_bytes + 1024) <= 233472
+    assert plan.grid == min(plan.units, 132 * 2)

@@ -162,3 +162,49 @@ def test_draw_statistics():
     assert abs(var - 1.0) < 0.01
     bits = tfs._bits_from_idx(idx, 2).to(torch.float32)
     assert abs(float(bits.mean()) - 0.5) < 0.01
+
+
+def _train_spec(channel, nbits, mobile=False, **cfg):
+    """The spec a `Trainer`'s fused gate builds for this configuration."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    return Trainer(OFDMConfig(nbits=nbits, **cfg), TrainConfig(),
+                   channel=channel, mobile=mobile,
+                   device="cpu")._fused_synth_spec
+
+
+# nfft 64 static, passthrough and mobile (Doppler rows); nfft 128 with the
+# long CP (sps 160) and without (137), static and mobile
+PLAN_SPECS = [("ETU", 1, False, {}), ("AWGN", 4, False, {}),
+              ("mixRayleigh", 1, True, {}), ("mixAll", 2, True, {}),
+              ("ETU", 1, False, {"nfft": 128}),
+              ("mixRayleigh", 2, True, {"nfft": 128}),
+              ("ETU", 3, False, {"nfft": 128, "longcp": False}),
+              ("mixRayleigh", 2, True, {"nfft": 128, "longcp": False})]
+
+
+@pytest.mark.parametrize("channel,nbits,mobile,cfg", PLAN_SPECS)
+@pytest.mark.parametrize("n", [1, 37, 2340, 9362, 37449])
+def test_synth_plan_fits_a_block_and_fills_the_card(channel, nbits, mobile,
+                                                    cfg, n):
+    """The synth kernel's launch plan (`want_h` changes no buffer of it):
+    its shared memory fits a block (two a SM at nfft 64), its groups hold
+    every row once, stage 4's thread halves cover the frame's column quads
+    within the block, and the grid is as many blocks as the card holds or
+    the groups there are: a full card at bench.py's batch sizes."""
+    spec = _train_spec(channel, nbits, mobile, **cfg)
+    assert spec.mobile == mobile
+    plan = tfs.synth_plan(spec, n)
+    assert plan.smem_bytes == tfs.synth_smem(spec, plan.rows) <= 232448
+    if spec.nfft == 64:
+        assert plan.rows == 8 and 2 * (plan.smem_bytes + 1024) <= 233472
+    assert plan.rows in (8, 4, 2, 1)
+    assert (plan.groups - 1) * plan.rows < n <= plan.groups * plan.rows
+    l4c = -(-spec.length // 4)
+    assert plan.threads % 32 == 0 and plan.threads >= 288
+    assert 1 <= plan.halves <= plan.rows
+    assert plan.halves * l4c <= plan.threads
+    assert plan.grid == min(plan.groups, 132 * 2)
+    if n >= 2340:
+        assert plan.grid == 264
+

@@ -152,6 +152,19 @@ def test_complex_dense_tiles_suit_bulk_copies(m, k, f):
 @pytest.mark.parametrize("k", [2642, 2643, 5000])
 def test_complex_dense_plan_marks_k_past_the_ring(k):
     """Past K = 2,642 no ring of three 2-row tiles fits beside the
-    weight: the plan says so (rows 0), and the wrapper raises on it."""
+    weight: the plan says so (`streamed`) and streams 32-row tiles in K
+    chunks through one [32, 192] buffer.  Every K has a plan whose shared
+    memory fits a block (227 KB), and its tiles hold every row once."""
     plan = tpk.complex_dense_plan(100, k, 64)
-    assert (plan.rows_per_tile == 0) == (k > 2642)
+    assert plan.streamed == (k > 2642)
+    assert plan.k_chunk == tpk.CD_KC_MAX < k
+    stages = 1 if plan.streamed else 3
+    assert plan.smem_bytes == (tpk.CD_BAR_BYTES + 8 * plan.k_chunk * 64
+                               + 8 * stages * plan.stage_elems)
+    assert plan.smem_bytes <= tpk.CD_SMEM_BUDGET <= 232448
+    rt = plan.rows_per_tile
+    if plan.streamed:
+        assert rt == 32 and plan.stage_elems == rt * plan.k_chunk
+    else:
+        assert rt == 2 and plan.stage_elems >= rt * k
+    assert (plan.row_tiles - 1) * rt < 100 <= plan.row_tiles * rt

@@ -122,11 +122,36 @@ Phases, each printed with its elapsed seconds:
     count), device µs a call for the prologue, each of the
     five tensor-core GEMMs, the head, the reductions (split and column
     sums, the head's sums, the fold) and the parameter packing.
- 5. (printed last) one `{"kernels": [...]}` line with all five kernels
+19. the multi-device path on virtual ranks of one card (a mesh that lists
+    the card 4 or 8 times; run after phase 16, before the profiled phases):
+      a. the dp training step, `bench.py`'s configuration on
+         `make_mesh([cuda:0] * 4, dp=4)`: 9,362 frames rounded to 9,364
+         (2,341 a rank), one warm-up and 10 timed steps (ms/step),
+         `fir_shift_accum` 4 launches a step, step-1 gradients within 5e-2
+         of each leaf's max of the single-device autograd route on the
+         same four shards (phase 8's tolerance), replicas bit-identical;
+      b. the 16QAM arm's mesh sweeps (dp 4): point_batch in 2,000-frame
+         batches against the committed CSV, interleaved at 7,872 frames a
+         call (48 a point and rank) against `JAX_INTERLEAVED_BER`, 5 %
+         as phase 4; `complex_dense` 4 launches a call;
+      c. the sequence-parallel halo FIR: 64 streams of 1,146,880 samples
+         (2,048 frames of 560), 13 taps, offsets 6 and 0, P = 4 and 8,
+         both exchanges: bit-equal to `fir_same_iq` of the whole block;
+         the ring kernel bit-equal to its plain version at P = 1, 2, 4, 8
+         with launches equal to the calls; device times (CUDA graphs of
+         100 calls; the ring's replayed with its flags set back to the
+         epoch before the first, `ring_graph_ms`) and eager times of the
+         kernel, its plain version, one `_foreach_copy_` of the same
+         slices (the library yardstick) and an empty launch; the bytes
+         bound; the halo FIR with each exchange (events);
+      d. one rank a card where the machine has two or more cards (peer
+         access printed); otherwise one line that says it was not run.
+ 5. (printed last) one `{"kernels": [...]}` line with all six kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts), of
-    `philox_probe` from phase 12, of `fir_shift_accum` from phases 14 and
-    15), then as the last line `{"ok": true, "device": {...}}`.
+    `philox_probe` from phase 12, of `fir_shift_accum` from phases 14, 15
+    and 19, of `ring_exchange` from phase 19c), then as the last line
+    `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
@@ -1484,8 +1509,9 @@ def phase_model_breakdown(tfm, dev) -> None:
     batch sizes: 6 calls under `torch.profiler` (last, as it slows the
     launches that follow it), each launch's device µs by part; the five
     tensor-core GEMMs are told apart by their order in a call.  The
-    profiler misses the first launches after it starts, so only the calls
-    with every launch recorded count."""
+    profiler misses the first launches after it starts and drops records
+    under load, so only the calls with every launch recorded count, and a
+    window with no such call is profiled again (at most 3 windows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
@@ -1504,21 +1530,27 @@ def phase_model_breakdown(tfm, dev) -> None:
         args = (spec, b, params, *planes, c, idx)
         tfm.dccn_fused_grads_kernel(*args)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(6):
-                tfm.dccn_fused_grads_kernel(*args)
-            torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-        # a call starts with its packing launch; keep the calls with every
-        # launch of the route recorded
-        starts = [i for i, e in enumerate(kernels) if "pack_params" in e.name]
-        calls = [kernels[a:z] for a, z in zip(starts,
-                                               starts[1:] + [len(kernels)])]
-        calls = [c for c in calls
-                 if sum("tc_gemm_kernel" in e.name for e in c) == 5
-                 and all(any(n in e.name for e in c) for n in WHOLE_CALL)]
+        calls, windows = [], 0
+        while not calls and windows < 3:
+            windows += 1
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(6):
+                    tfm.dccn_fused_grads_kernel(*args)
+                torch.cuda.synchronize()
+            kernels = sorted(
+                (e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+            # a call starts with its packing launch; keep the calls with
+            # every launch of the route recorded
+            starts = [i for i, e in enumerate(kernels)
+                      if "pack_params" in e.name]
+            calls = [kernels[a:z] for a, z in zip(
+                starts, starts[1:] + [len(kernels)])]
+            calls = [c for c in calls
+                     if sum("tc_gemm_kernel" in e.name for e in c) == 5
+                     and all(any(n in e.name for e in c)
+                             for n in WHOLE_CALL)]
         if not calls:
             raise AssertionError(f"the profiler recorded no whole call of "
                                  f"the model kernel at {b} frames")
@@ -1546,6 +1578,7 @@ def phase_model_breakdown(tfm, dev) -> None:
         busy /= n
         us = {k: v / n for k, v in sorted(parts.items())}
         print(json.dumps({"phase": 18, "frames": b, "calls": n,
+                          "windows": windows,
                           "busy_us_per_call": busy,
                           "launches_per_call": sum(map(len, calls)) / n,
                           "us_per_call": us,
@@ -1554,6 +1587,343 @@ def phase_model_breakdown(tfm, dev) -> None:
         log(f"dccn_fused_grads bf16 {b:6d} frames: {busy:.1f} us busy a "
             f"call ({n} whole calls of 6); "
             + ", ".join(f"{k} {v:.1f}" for k, v in us.items()))
+
+
+# phase 19: the multi-device path on virtual ranks of one card
+MESH_DP = 4
+MESH_STEPS = 10                    # timed dp steps after one warm-up step
+HALO_B, HALO_FRAMES, HALO_TAPS = 64, 2048, 13   # streams, frames, ETU taps
+HALO_PS = (4, 8)
+HALO_OFFSETS = (6, 0)              # 'same' and causal
+
+
+def phase_mesh_train(tpk, dev) -> dict:
+    """Phase 19a: the dp training step, `bench.py`'s configuration on a
+    4-rank mesh of virtual ranks; returns its `fir_shift_accum` launches."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    mesh = make_mesh([dev] * MESH_DP, dp=MESH_DP)
+    cfg, tc = OFDMConfig(nbits=1), TrainConfig(batch_size=65534)
+    tr = Trainer(cfg, tc, channel="ETU", mesh=mesh)
+    frames = tr.batch_frames
+    if frames != 9364 or tr._use_fused_model:
+        raise AssertionError(f"dp trainer: {frames} frames, fused "
+                             f"{tr._use_fused_model}; want 9,364, autograd")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    state = tr.init_state(gen)
+    snr = torch.full((frames,), 5.0, device=dev)
+    torch.cuda.synchronize()
+    tpk.fir_shift_accum_kernel.launches = 0
+    state, aux = tr.train_step(state, gen, snr)            # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / MESH_STEPS
+    launches = tpk.fir_shift_accum_kernel.launches
+    if launches != MESH_DP * (MESH_STEPS + 1):
+        raise AssertionError(f"fir_shift_accum launched {launches} times in "
+                             f"{MESH_STEPS + 1} dp steps of {MESH_DP} ranks")
+    if not torch.isfinite(aux["loss"]):
+        raise AssertionError(f"dp step loss {float(aux['loss'])}")
+    same = all(torch.equal(rep[k], state.params[k])
+               for rep in state.replicas for k in rep)
+    if not same or len(state.replicas) != MESH_DP:
+        raise AssertionError("dp replicas differ after the steps")
+    # step-1 gradients against the single-device autograd route on the
+    # same four shards (phase 8's tolerance: leaky kinks)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(20))
+    bits, rx_in, _, npwr = tr._synth_mesh(
+        torch.Generator(device=dev).manual_seed(21), snr)
+    _, aux1 = tr._mesh_step(state, bits, rx_in, [{}] * MESH_DP, npwr,
+                            return_grads=True)
+    single = Trainer(cfg, tc, channel="ETU", device=dev)
+    params = {k: v.clone().requires_grad_() for k, v in state.params.items()}
+    loss, _ = single._loss_fn(params, torch.cat(bits), torch.cat(rx_in))
+    want = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    gerr = check_grads("dp step-1 gradients vs single-device autograd",
+                       aux1["grads"], want, 5e-2)
+    line = {"phase": 19, "part": "dp train step", "dp": MESH_DP,
+            "frames": frames, "ms_per_step": ms,
+            "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3),
+            "fir_shift_accum_launches": launches,
+            "steps": MESH_STEPS + 1, "step1_grad_err": gerr,
+            "replicas_identical": same, "ce": float(aux["ce"])}
+    log(f"dp step ({MESH_DP} virtual ranks, {frames} frames): {ms:.3f} "
+        f"ms/step; fir_shift_accum {launches} launches in "
+        f"{MESH_STEPS + 1} steps; step-1 gradients within {gerr:.3g} of "
+        f"the single-device route; replicas bit-identical")
+    print(json.dumps(line), flush=True)
+    return {"fir_shift_accum": launches}
+
+
+def phase_mesh_sweeps(tpk, dev, trainer, csv_ber) -> None:
+    """Phase 19b: the 16QAM arm's sweeps on a 4-rank mesh: point_batch in
+    2,000-frame batches (500 a rank) against the committed CSV, and
+    interleaved at 7,872 frames a call (192 a point, 48 a point and rank,
+    as the single-device call's 1,968 / 41) against JAX's curve."""
+    import torch
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh([dev] * MESH_DP, dp=MESH_DP)
+    for protocol, batch, seed, ref, ref_name in (
+            ("point_batch", 2000, 17, csv_ber, "CSV"),
+            ("interleaved", 7872, 999, JAX_INTERLEAVED_BER, "JAX")):
+        torch.cuda.synchronize()
+        tpk.complex_dense_kernel.launches = 0
+        logs = []
+        t = time.time()
+        res = ber_sweep(trainer, torch.Generator(device=dev).manual_seed(seed),
+                        snrs=SNRS, frames_per_point=20000, batch_frames=batch,
+                        log_fn=logs.append, mesh=mesh,
+                        point_batch=protocol == "point_batch")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        calls = (len(SNRS) * 10 if protocol == "point_batch"
+                 else 20000 // 192)
+        frames = (calls * batch)
+        launches = tpk.complex_dense_kernel.launches
+        if launches != calls * MESH_DP:
+            raise AssertionError(f"mesh {protocol}: complex_dense launched "
+                                 f"{launches} times, want {calls * MESH_DP}")
+        check_curve(f"mesh {protocol}", res.ber, ref, ref_name)
+        log(f"mesh {protocol} sweep ({MESH_DP} ranks): {calls} calls of "
+            f"{batch} frames in {wall:.3f} s = {frames / wall:.0f} frames/s; "
+            f"complex_dense launches {launches}")
+        print(json.dumps({"phase": 19, "part": f"mesh {protocol} sweep",
+                          "calls": calls, "frames": frames, "seconds": wall,
+                          "frames_per_s": frames / wall,
+                          "complex_dense_launches": launches}), flush=True)
+
+
+def ring_graph_ms(halo, lt, rh, iters: int = 100) -> float:
+    """Device ms of one ring launch: `iters` calls captured in one CUDA
+    graph, each with its own epoch, and replayed after the ring's flags are
+    set back to the epoch before the first, so that every replayed launch
+    waits on its partners as an eager one does."""
+    import torch
+    halo.ring_exchange_kernel(lt, rh)              # the ring's flags exist
+    torch.cuda.synchronize()
+    ring = halo._RINGS[tuple(t.device for t in lt)]
+    e0 = ring.epoch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            halo.ring_exchange_kernel(lt, rh)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):                             # warm-up, then timed
+        for f in ring.flags.values():
+            f.fill_(e0)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def phase_halo(tpk, dev, hbm_bps) -> dict:
+    """Phase 19c: the sequence-parallel halo FIR at full width and the
+    ring kernel; returns the kernels-line fields of `ring_exchange`."""
+    import torch
+    from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
+    from dl_ofdm_tpu_torch.parallel import halo
+    length = HALO_FRAMES * FIR_LEN
+    gen = torch.Generator(device=dev).manual_seed(191)
+    x = torch.randn(HALO_B, length, 2, device=dev, generator=gen)
+    h = torch.randn(HALO_B, HALO_TAPS, 2, device=dev, generator=gen)
+    out = {"max_abs_err": 0.0}
+    # the kernel against its plain version at P = 1, 2, 4, 8 on the halo
+    # path's slices ([64, 6, 2] each way)
+    torch.cuda.synchronize()
+    halo.ring_exchange_kernel.launches = 0
+    calls = 0
+    for p in (1, 2, 4, 8):
+        shards = list(torch.chunk(x, p, dim=1))
+        lt = [s[:, -6:, :] for s in shards]
+        rh = [s[:, :6, :] for s in shards]
+        got = halo.ring_exchange_kernel(lt, rh)
+        want = halo.ring_exchange_ref(lt, rh)
+        calls += 1
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[0] + got[1], want[0] + want[1]))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if err:
+            raise AssertionError(f"ring_exchange at P = {p}: {err:.3g} from "
+                                 "its plain version; want bit-equal")
+    if halo.ring_exchange_kernel.launches != calls:
+        raise AssertionError(f"ring_exchange launched "
+                             f"{halo.ring_exchange_kernel.launches} times "
+                             f"in {calls} calls")
+    log(f"ring_exchange at P = 1, 2, 4, 8 ([{HALO_B}, 6, 2] each way): "
+        f"bit-equal to its plain version, {calls} launches")
+    # the halo FIR against fir_same_iq of the whole block; the main path's
+    # counts are zeroed just before and read just after
+    wholes = {off: fir_same_iq(x, h, np.full(HALO_B, off))
+              for off in HALO_OFFSETS}
+    torch.cuda.synchronize()
+    halo.ring_exchange_kernel.launches = 0
+    tpk.fir_shift_accum_kernel.launches = 0
+    runs = 0
+    for p in HALO_PS:
+        shards = list(torch.chunk(x, p, dim=1))
+        for off in HALO_OFFSETS:
+            for exchange in ("ppermute", "dma"):
+                y = halo.halo_fir_same_iq(shards, h, off, [dev] * p,
+                                          exchange=exchange)
+                runs += 1
+                if not torch.equal(torch.cat(y, dim=1), wholes[off]):
+                    raise AssertionError(
+                        f"halo FIR P {p} offset {off} {exchange}: differs "
+                        "from fir_same_iq of the whole block")
+    torch.cuda.synchronize()
+    out["launches"] = halo.ring_exchange_kernel.launches
+    out["fir_launches"] = tpk.fir_shift_accum_kernel.launches
+    want_ring = len(HALO_PS) * len(HALO_OFFSETS)
+    want_fir = sum(HALO_PS) * len(HALO_OFFSETS) * 2
+    if out["launches"] != want_ring or out["fir_launches"] != want_fir:
+        raise AssertionError(f"halo path: ring {out['launches']} launches "
+                             f"(want {want_ring}), fir_shift_accum "
+                             f"{out['fir_launches']} (want {want_fir})")
+    log(f"halo FIR, {HALO_B} x {length} samples, {HALO_TAPS} taps, P "
+        f"{HALO_PS}, offsets {HALO_OFFSETS}, both exchanges: {runs} runs "
+        f"bit-equal to fir_same_iq; ring launches {out['launches']}, FIR "
+        f"launches {out['fir_launches']}")
+    # device times from CUDA graphs of 100 calls (the ring's with its flags
+    # set back before each replay, `ring_graph_ms`), eager times from events
+    # around 100 calls issued from Python
+    lib = halo._ring_lib()
+
+    def empty():
+        err = lib.ring_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty launch failed: CUDA error {err}")
+
+    empty_ms, empty_eager = time_ms(empty, 100)
+    for p in HALO_PS:
+        shards = list(torch.chunk(x, p, dim=1))
+        lt = [s[:, -6:, :] for s in shards]
+        rh = [s[:, :6, :] for s in shards]
+        dst = [torch.empty(HALO_B, 6, 2, device=dev) for _ in range(2 * p)]
+        src = [lt[(r - 1) % p] for r in range(p)] + [
+            rh[(r + 1) % p] for r in range(p)]
+        fns = {"kernel": lambda: halo.ring_exchange_kernel(lt, rh),
+               "plain": lambda: halo.ring_exchange_ref(lt, rh),
+               "library": lambda: torch._foreach_copy_(dst, src)}
+        times = {n: [] for n in fns}
+        for n in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+            times[n].append((ring_graph_ms(halo, lt, rh),
+                             events_ms(fns[n], 100)) if n == "kernel"
+                            else time_ms(fns[n], 100))
+        ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
+        eager = {n: sum(t[1] for t in v) / len(v) for n, v in times.items()}
+        n_bytes = 2 * 2 * p * HALO_B * 6 * 2 * 4    # read once, written once
+        bound = n_bytes / hbm_bps * 1e3
+        fir_ms = {ex: events_ms(lambda: halo.halo_fir_same_iq(
+            shards, h, 6, [dev] * p, exchange=ex), 10)
+            for ex in ("ppermute", "dma")}
+        line = {"phase": 19, "part": "halo", "P": p, "ring_ms": ms["kernel"],
+                "plain_ms": ms["plain"], "foreach_copy_ms": ms["library"],
+                "empty_launch_ms": empty_ms, "eager_ms": eager,
+                "empty_launch_eager_ms": empty_eager, "bytes": n_bytes,
+                "bound_ms": bound, "halo_fir_ms": fir_ms,
+                "timing": "CUDA graphs of 100 calls; eager: events around "
+                          "100 calls"}
+        log(f"ring_exchange P {p} (graph / eager ms): kernel "
+            f"{ms['kernel']:.4f} / {eager['kernel']:.4f}, plain "
+            f"{ms['plain']:.4f} / {eager['plain']:.4f}, one _foreach_copy_ "
+            f"{ms['library']:.4f} / {eager['library']:.4f}, empty launch "
+            f"{empty_ms:.4f} / {empty_eager:.4f}, bytes bound {bound:.6f}; "
+            f"halo FIR ppermute {fir_ms['ppermute']:.3f} ms, dma "
+            f"{fir_ms['dma']:.3f} ms")
+        print(json.dumps(line), flush=True)
+        if p == HALO_PS[0]:
+            out.update(ms=ms["kernel"], eager_ms=eager["kernel"],
+                       plain_ms=ms["plain"], library_ms=ms["library"],
+                       bound_ms=bound, bound_by="bytes",
+                       empty_launch_ms=empty_ms)
+    fir_whole = events_ms(lambda: fir_same_iq(x, h, np.full(HALO_B, 6)), 10)
+    log(f"fir_same_iq of the whole block: {fir_whole:.3f} ms")
+    out["fir_same_iq_whole_ms"] = fir_whole
+    return out
+
+
+def phase_halo_cross_card() -> None:
+    """Phase 19d: the ring and the halo FIR with one rank a card, where
+    the machine has two or more cards: the ring bit-equal to its plain
+    version with one launch a card, the halo FIR at phase 19c's width
+    bit-equal to `fir_same_iq` on card 0, and times from the host clock
+    around 100 calls that ends in a synchronize of every card."""
+    import torch
+    from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
+    from dl_ofdm_tpu_torch.parallel import halo
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"cross-card ring not run: this machine has {n} CUDA device; "
+            "nothing is claimed for it")
+        print(json.dumps({"phase": 19, "part": "cross-card",
+                          "run": False, "devices": n}), flush=True)
+        return
+    devs = [torch.device("cuda", i) for i in range(n)]
+    peers = {f"{i}->{j % n}": halo.enable_peer_access(i, j % n)
+             for i in range(n) for j in (i - 1, i + 1) if j % n != i}
+    log(f"cross-card ring over {n} cards, peer access {peers}")
+
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    def host_ms(fn, iters=100):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    gen = torch.Generator(device=devs[0]).manual_seed(192)
+    x = torch.randn(HALO_B, HALO_FRAMES * FIR_LEN, 2, device=devs[0],
+                    generator=gen)
+    h = torch.randn(HALO_B, HALO_TAPS, 2, device=devs[0], generator=gen)
+    shards = [s.to(d) for s, d in zip(torch.chunk(x, n, dim=1), devs)]
+    lt = [s[:, -6:, :] for s in shards]
+    rh = [s[:, :6, :] for s in shards]
+    before = halo.ring_exchange_kernel.launches
+    got = halo.ring_exchange_kernel(lt, rh)
+    want = halo.ring_exchange_ref(lt, rh)
+    sync()
+    ring_equal = all(a.device == b.device and torch.equal(a, b)
+                     for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    y = halo.halo_fir_same_iq(shards, h, 6, devs, exchange="dma")
+    sync()
+    fir_equal = torch.equal(torch.cat([t.to(devs[0]) for t in y], dim=1),
+                            fir_same_iq(x, h, np.full(HALO_B, 6)))
+    launches = halo.ring_exchange_kernel.launches - before
+    if not (ring_equal and fir_equal) or launches != 2 * n:
+        raise AssertionError(f"cross-card: ring equal {ring_equal}, halo "
+                             f"FIR equal {fir_equal}, {launches} ring "
+                             f"launches for 2 calls on {n} cards")
+    ms = {"kernel": host_ms(lambda: halo.ring_exchange_kernel(lt, rh)),
+          "plain": host_ms(lambda: halo.ring_exchange_ref(lt, rh)),
+          "halo_fir_dma": host_ms(lambda: halo.halo_fir_same_iq(
+              shards, h, 6, devs, exchange="dma"), 10),
+          "halo_fir_ppermute": host_ms(lambda: halo.halo_fir_same_iq(
+              shards, h, 6, devs, exchange="ppermute"), 10)}
+    log(f"cross-card ({n} cards): ring bit-equal to its plain version, one "
+        f"launch a card; halo FIR bit-equal to fir_same_iq; host-clock ms "
+        f"{ms}")
+    print(json.dumps({"phase": 19, "part": "cross-card", "run": True,
+                      "devices": n, "peer_access": peers,
+                      "ring_launches": launches, "ms": ms,
+                      "timing": "host clock around calls, all cards "
+                                "synchronized"}), flush=True)
 
 
 def main() -> None:
@@ -1758,6 +2128,14 @@ def main() -> None:
     launches_serve = phase_serve_arms(tpk, tfs, dev)
     launches_eq = phase_train_eq(tpk, tfs, dev)
     phase_train_eq_mobile(tpk, tfs, dev)
+
+    # -- 19. the multi-device path (before the profiled phases) -------------
+    launches_mesh = phase_mesh_train(tpk, dev)
+    phase_mesh_sweeps(tpk, dev, trainer, csv_ber)
+    ring = phase_halo(tpk, dev, hbm_bps)
+    phase_halo_cross_card()
+
+    # -- 17-18. the profiled phases -------------------------------------------
     phase_profile_eq(dev)
     phase_model_breakdown(tfm, dev)
     static = {f"static_{k}": v for k, v in synth["line"].items()
@@ -1783,10 +2161,19 @@ def main() -> None:
          "source": "dl_ofdm_tpu_torch/csrc/fir_shift_accum.cu",
          "replaces": "dl_ofdm_tpu/ops/pallas_kernels.py:171",
          "launches": (launches_serve["fir_shift_accum"]
-                      + launches_eq["fir_shift_accum"]),
+                      + launches_eq["fir_shift_accum"]
+                      + launches_mesh["fir_shift_accum"]
+                      + ring["fir_launches"]),
          "launches_serving": launches_serve["fir_shift_accum"],
          "launches_training": launches_eq["fir_shift_accum"],
-         **fir_line}]
+         "launches_dp_training": launches_mesh["fir_shift_accum"],
+         "launches_halo": ring["fir_launches"],
+         **fir_line},
+        {"name": "ring_exchange", "route": "cuda",
+         "source": "dl_ofdm_tpu_torch/csrc/ring_exchange.cu",
+         "replaces": "dl_ofdm_tpu/parallel/halo.py:62",
+         **{k: v for k, v in ring.items() if k != "fir_launches"},
+         "check": "pass"}]
     kernels[0].update(
         launches_equalizer_serving=launches_serve["complex_dense"],
         launches_equalizer_training=launches_eq["complex_dense"])

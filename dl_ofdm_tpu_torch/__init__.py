@@ -18,7 +18,10 @@ training step of the basic `Trainer` on AWGN, static and Jakes-Doppler
 `csrc/fused_model.cu`); the PRNG probe (`csrc/philox_probe.cu`); and the
 equalizer transfer-learning stage (`models/equalizers.py`,
 `models/receiver.py`, `train/equalizer_loop.py`), whose static FIR runs on
-`csrc/fir_shift_accum.cu`.
+`csrc/fir_shift_accum.cu`; and the device mesh (`parallel/`): data
+parallelism over ranks of one process for training, the equalizer stage
+and the sweeps, and the sequence-parallel halo FIR, whose ring exchange
+runs on `csrc/ring_exchange.cu`.
 """
 from __future__ import annotations
 

@@ -16,7 +16,25 @@ channel (reference cross-channel protocol, `ofdmreceiver_np_mp.py:62-104`:
 SNR -10:5:30, 30,000 frames a point, one CSV per channel).
 
 Counts accumulate on the device and are read once at the end of the sweep.
-The mesh (`mesh=`) variants are a later slice.
+
+With `mesh=` (dp only, `parallel/mesh.py`; `sweep.py:71-77`, `:85-146`,
+`:167-251`) every batch is split over the ranks: each rank draws and
+evaluates its shard on its device with its own generator
+(`rank_generators`, drawn once a sweep) and its copy of the model, and the
+error and CE counts are summed over the ranks.
+
+  * interleaved: `rep = max(batch_frames // n_points, 4 dp)`, rounded up
+    to a multiple of dp, in the single-device interleaving order, so every
+    rank's contiguous shard covers every SNR point and normalizes per
+    point over its own frames;
+  * point_batch: the normalization moments are taken over the whole batch
+    across the ranks.  Two differences from JAX by design
+    (`ADVICE.md`): the moments are two-pass (the global mean, then the
+    summed centred squares; JAX takes E[x^2] - mean^2 in float32,
+    `sweep.py:222`), and the frame count is exact: a `batch_frames` that
+    dp does not divide is refused (JAX rounds it up, `sweep.py:209`), and
+    where `frames_per_point` is not a whole number of batches the log says
+    how many frames a point were evaluated.
 """
 from __future__ import annotations
 
@@ -27,6 +45,9 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from dl_ofdm_tpu_torch.ops.norms import normalize
+from dl_ofdm_tpu_torch.parallel.mesh import (check_dp_only, module_replicas,
+                                             rank_generators)
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.loop import first_output
 
@@ -49,12 +70,14 @@ class SweepResult:
         return path
 
 
-def interleaved_groups(snrs, batch_frames: int, device):
+def interleaved_groups(snrs, batch_frames: int, device, dp: int = 1):
     """The interleaved batch layout: (snr_vec [B], onehot [B, n_points]),
     frames ordered repeat-major so every SNR point recurs through the batch
-    (`sweep.py:88-99`, single device)."""
+    and through each of `dp` contiguous shards (`sweep.py:88-99`): at
+    least 4 frames a point and shard, the repeats a multiple of dp."""
     n_pts = len(snrs)
-    rep = max(1, batch_frames // n_pts, 4)
+    rep = max(1, batch_frames // n_pts, 4 * dp)
+    rep += (-rep) % dp
     snr_np = np.repeat(np.asarray(snrs, np.float32), rep)
     idx_np = np.repeat(np.arange(n_pts), rep)
     order = np.argsort(np.tile(np.arange(rep), n_pts), kind="stable")
@@ -67,13 +90,15 @@ def interleaved_groups(snrs, batch_frames: int, device):
 def eval_batch(trainer, snr_vec: torch.Tensor, onehot: torch.Tensor,
                generator: torch.Generator | None = None,
                bits: torch.Tensor | None = None,
-               unit_noise: torch.Tensor | None = None):
-    """One interleaved batch -> (errors [n_points] int64, summed per-frame
-    CE [n_points]) (`sweep.py:101-121`)."""
+               unit_noise: torch.Tensor | None = None,
+               model: torch.nn.Module | None = None):
+    """One interleaved batch on `snr_vec`'s device -> (errors [n_points]
+    int64, summed per-frame CE [n_points]) (`sweep.py:101-121`), through
+    `model` (the trainer's by default)."""
     bits, rx_in, _, _, _ = trainer.synthesize(
         snr_vec.shape[0], snr_vec, generator, norm_groups=onehot, bits=bits,
-        unit_noise=unit_noise)
-    logits = first_output(trainer.model(rx_in))
+        unit_noise=unit_noise, device=snr_vec.device)
+    logits = first_output((model or trainer.model)(rx_in))
     pred = M.bit_predictions(logits)
     err_per_frame = (pred != bits).sum(dim=(1, 2))
     errors = (err_per_frame[:, None] * onehot.to(torch.int64)).sum(dim=0)
@@ -87,15 +112,18 @@ def ber_sweep(trainer, generator: torch.Generator | None = None,
               frames_per_point: int = 20000,
               batch_frames: int = 2000,
               log_fn=print,
-              point_batch: bool = False) -> SweepResult:
-    """Run the BER sweep of `trainer.model` with data made on its device.
+              point_batch: bool = False, mesh=None) -> SweepResult:
+    """Run the BER sweep of `trainer.model` with data made on its device,
+    or over the ranks of a dp `mesh` (see the module note).
 
     `generator` (on `trainer.device`) drives every draw; the device's
     default generator when None."""
     snrs = list(snrs)
+    if mesh is not None:
+        return _ber_sweep_mesh(trainer, generator, snrs, frames_per_point,
+                               batch_frames, log_fn, point_batch, mesh)
     n_pts = len(snrs)
     dev = trainer.device
-    bits_per_frame = trainer.plan.frame_size * trainer.cfg.nbits
     tot_err = torch.zeros(n_pts, dtype=torch.int64, device=dev)
     tot_ce = torch.zeros(n_pts, dtype=torch.float64, device=dev)
     if point_batch:
@@ -119,12 +147,87 @@ def ber_sweep(trainer, generator: torch.Generator | None = None,
             errors, ce = eval_batch(trainer, snr_vec, onehot, generator)
             tot_err += errors
             tot_ce += ce
+    return _sweep_result(trainer, snrs, tot_err, tot_ce, frames, log_fn)
+
+
+def _sweep_result(trainer, snrs, tot_err, tot_ce, frames: int,
+                  log_fn) -> SweepResult:
+    """BER and mean CE a point from the summed counts of `frames` frames a
+    point, each point logged."""
+    bits_per_frame = trainer.plan.frame_size * trainer.cfg.nbits
     bers = tot_err.cpu().numpy() / (frames * bits_per_frame)
     losses = tot_ce.cpu().numpy() / frames
     for snr, ber, loss in zip(snrs, bers, losses):
         log_fn(f"SNR: {snr:.2f}, BER: {ber:.8f}, Loss: {loss:f}")
     return SweepResult(np.asarray(snrs, dtype=float), np.asarray(bers),
                        np.asarray(losses))
+
+
+def global_moments(ys: list, device: torch.device):
+    """Per-position (mean, population variance) over the concatenation of
+    the ranks' batches `ys`, on `device`, in two passes: the mean from the
+    shards' sums, then the variance from the shards' summed centred
+    squares (summed in rank order)."""
+    n = sum(y.shape[0] for y in ys)
+    mean = sum(y.sum(dim=0, keepdim=True).to(device) for y in ys) / n
+    var = sum(((y - mean.to(y.device)) ** 2).sum(dim=0, keepdim=True)
+              .to(device) for y in ys) / n
+    return mean, var
+
+
+@torch.no_grad()
+def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
+                    batch_frames: int, log_fn, point_batch: bool,
+                    mesh) -> SweepResult:
+    """`ber_sweep` over the ranks of a dp mesh (see the module note)."""
+    check_dp_only(mesh)
+    devs = mesh.dp_devices
+    dp, dev0 = len(devs), devs[0]
+    models = module_replicas(trainer.model, devs)
+    gens = rank_generators(generator, devs)
+    n_pts = len(snrs)
+    tot_err = torch.zeros(n_pts, dtype=torch.int64, device=dev0)
+    tot_ce = torch.zeros(n_pts, dtype=torch.float64, device=dev0)
+    if point_batch:
+        batch_frames = min(batch_frames, frames_per_point)
+        if batch_frames % dp:
+            raise ValueError(
+                f"point_batch on a mesh: batch_frames {batch_frames} is not "
+                f"a multiple of dp {dp}, so its frames do not split evenly")
+        n_calls = max(1, frames_per_point // batch_frames)
+        frames = n_calls * batch_frames
+        if frames != frames_per_point:
+            log_fn(f"point_batch: {frames} frames a point ({n_calls} calls "
+                   f"of {batch_frames}), not {frames_per_point}")
+        shard = batch_frames // dp
+        for i, snr in enumerate(snrs):
+            snr_vecs = [torch.full((shard,), float(snr), device=d)
+                        for d in devs]
+            for _ in range(n_calls):
+                out = [trainer.synthesize(shard, s, g, normalize=False,
+                                          device=d)
+                       for s, g, d in zip(snr_vecs, gens, devs)]
+                mean, var = global_moments([y for _, y, *_ in out], dev0)
+                for (bits, y, *_), d in zip(out, devs):
+                    logits = first_output(models[d](
+                        normalize(y, mean.to(d), var.to(d))))
+                    tot_err[i] += (M.bit_predictions(logits) != bits).sum() \
+                        .to(dev0)
+                    tot_ce[i] += M.frame_cross_entropy(logits, bits).sum() \
+                        .to(dev0)
+    else:
+        snr_vec, onehot = interleaved_groups(snrs, batch_frames, "cpu", dp)
+        shards = [(s.to(d), o.to(d)) for s, o, d in
+                  zip(torch.chunk(snr_vec, dp), torch.chunk(onehot, dp), devs)]
+        frames = snr_vec.shape[0] // n_pts
+        n_calls = max(1, frames_per_point // frames)
+        frames *= n_calls
+        for _ in range(n_calls):
+            for (s, o), g, d in zip(shards, gens, devs):
+                errors, ce = eval_batch(trainer, s, o, g, model=models[d])
+                tot_err += errors.to(dev0)
+                tot_ce += ce.to(dev0)
+    return _sweep_result(trainer, snrs, tot_err, tot_ce, frames, log_fn)
 
 
 def cross_channel_sweep(make_trainer: Callable, params: dict,
@@ -144,18 +247,15 @@ def cross_channel_sweep(make_trainer: Callable, params: dict,
     (keyed as its model's `state_dict()`) are loaded into its model.  Each
     result is written to `save_dir` as
     `Test_DCCN_<token>_Equalizer<opt>_<train_channel>_test_chan_<channel>
-    [_mobile].csv`.  The mesh variant is not ported yet (ROADMAP.md
-    Queue A item 10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sweeps are not ported yet: ROADMAP.md Queue A item 10")
+    [_mobile].csv`.  `mesh` is passed on to `ber_sweep`."""
     results = {}
     for chan in test_channels:
         trainer = make_trainer(chan, mobile)
         trainer.model.load_state_dict(params)
         log_fn(f"Test in {chan}, mobile: {mobile}")
         res = ber_sweep(trainer, generator, snrs, frames_per_point,
-                        batch_frames, log_fn, point_batch=point_batch)
+                        batch_frames, log_fn, point_batch=point_batch,
+                        mesh=mesh)
         suffix = "_mobile" if mobile else ""
         name = (f"Test_DCCN_{token}_Equalizer{opt}_{train_channel}"
                 f"_test_chan_{chan}{suffix}.csv")

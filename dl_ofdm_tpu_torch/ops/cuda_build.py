@@ -34,7 +34,8 @@ SOURCES = {"complex_dense": "complex_dense.cu",
            "fused_synth": "fused_synth.cu",
            "fused_model": "fused_model.cu",
            "philox_probe": "philox_probe.cu",
-           "fir_shift_accum": "fir_shift_accum.cu"}
+           "fir_shift_accum": "fir_shift_accum.cu",
+           "ring_exchange": "ring_exchange.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name

@@ -22,6 +22,13 @@ def frame_layer_norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              eps: float = 1e-9) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) / sqrt(2): the receiver's input
+    normalization with given moments."""
+    return (x - mean) * torch.rsqrt(var + eps) / math.sqrt(2.0)
+
+
 def batch_norm_ref(x: torch.Tensor, eps: float = 1e-9,
                    group_onehot: torch.Tensor | None = None) -> torch.Tensor:
     """The reference receiver's input normalization (`ofdmreceiver_np.py:128-129`):
@@ -34,14 +41,14 @@ def batch_norm_ref(x: torch.Tensor, eps: float = 1e-9,
     if group_onehot is None:
         mean = x.mean(dim=0, keepdim=True)
         var = x.var(dim=0, unbiased=False, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + eps) / math.sqrt(2.0)
+        return normalize(x, mean, var, eps)
     counts = group_onehot.sum(dim=0)                          # [G]
     flat = x.reshape(x.shape[0], -1)                          # [B, P]
     g_mean = (group_onehot.T @ flat) / counts[:, None]        # [G, P]
     g_var = (group_onehot.T @ (flat * flat)) / counts[:, None] - g_mean**2
     mean = (group_onehot @ g_mean).reshape(x.shape)
     var = (group_onehot @ g_var).reshape(x.shape)
-    return (x - mean) * torch.rsqrt(var + eps) / math.sqrt(2.0)
+    return normalize(x, mean, var, eps)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,11 @@ whose static FIR is the `fir_shift_accum` kernel on a card), as the JAX
 package does by default (`fused_curriculum = False`, `equalizer_loop.py:96`);
 assigning `fused_curriculum = True` takes the synth kernel with the true
 channel (`fused_synthesize(..., want_h=True)`; its plain version on the
-CPU).  Not ported here: resume payloads (`fit(ckpt_dir=)`, ROADMAP.md
-Queue A item 5) and the mesh (Queue A item 10).
+CPU).  With `mesh=` (dp only, `parallel/mesh.py`) the step is data
+parallel over the ranks on the plain data plane (`Trainer._synth_mesh`
+with the true channel, `equalizer_loop.py:159-160`); a mesh with tp > 1
+raises (ROADMAP.md Queue A item 12).  Not ported here: resume payloads
+(`fit(ckpt_dir=)`, ROADMAP.md Queue A item 5).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ class EqualizerTrainer(Trainer):
     DCCN.  `pretrained_rx` is the receiver's parameters keyed as its
     `state_dict()` (`params_from_flax(load_params_npz(arm))`);
     `freeze_rx=False` trains the receiver too.  `device` defaults to
-    `cuda`."""
+    `cuda`; `mesh` as for `Trainer`."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig,
                  channel: str = "mixRayleigh", mobile: bool = False,
@@ -53,9 +56,6 @@ class EqualizerTrainer(Trainer):
                  eq_spec: EqSpec | None = None, mesh=None,
                  freeze_rx: bool = True,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training is not ported yet: ROADMAP.md Queue A item 10")
         spec = EQUALIZER_REGISTRY[tc.opt] if eq_spec is None else eq_spec
         plan = build_plan(cfg)
         model = EqualizedReceiver(
@@ -65,7 +65,7 @@ class EqualizerTrainer(Trainer):
             pilot_carriers=tuple(plan.pilot_carriers), keep_cp=cfg.cp,
             eq_spec=spec)
         super().__init__(cfg, tc, channel=channel, mobile=mobile, mix=mix,
-                         model=model, device=device)
+                         model=model, device=device, mesh=mesh)
         self.pretrained_rx = pretrained_rx
         self.freeze_rx = freeze_rx
         self._eq_reg_coeff = 1e-3          # `ofdmreceiver_np_mp.py:338`
@@ -93,29 +93,51 @@ class EqualizerTrainer(Trainer):
             params = graft_pretrained(params, self.pretrained_rx)
         self._set_trainable(params)
         return TrainState(params, self.optimizer.init(
-            {k: params[k] for k in self._trainable}), 0)
+            {k: params[k] for k in self._trainable}), 0,
+            self._replicate(params))
+
+    def _grad_keys(self, params: dict) -> list[str]:
+        return self._trainable
 
     # -- loss with the equalizer stage's coefficient and diagnostics ---------
-    def _loss_fn(self, params: dict, bits: torch.Tensor, rx_in: torch.Tensor,
-                 h_freq: torch.Tensor | None = None,
-                 snr_db: torch.Tensor | None = None):
-        """(CE + 1e-3 L2, metrics), with `snr_mse` given snr_db and
-        `chan_mse` given the true channel (`equalizer_loop.py:141-163`)."""
+    def _rank_terms(self, params: dict, bits: torch.Tensor,
+                    rx_in: torch.Tensor, h_freq: torch.Tensor | None = None,
+                    snr_db: torch.Tensor | None = None,
+                    model: torch.nn.Module | None = None):
+        """(CE, confusion counts, metrics) of one batch, the metrics with
+        `snr_mse` given snr_db and `chan_mse` given the true channel
+        (`equalizer_loop.py:141-163`)."""
         logits, _, _, snr_est, chest = torch.func.functional_call(
-            self.model, params, (rx_in,))
+            model or self.model, params, (rx_in,))
         ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
-        reg = M.l2_regularization(params)
         conf = M.confusion_matrix(bits, M.bit_predictions(logits))
-        log_ber, ber = M.ber_from_confusion(conf)
-        loss = ce + self._eq_reg_coeff * reg
-        aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
-               "total_loss": loss}
+        aux = {}
         if snr_db is not None:
             # the reference's unit mismatch: a log10 estimate against dB
             aux["snr_mse"] = torch.mean((snr_est - snr_db.reshape(-1, 1)) ** 2)
         if h_freq is not None:
             aux["chan_mse"] = torch.mean(
                 (frame_layer_norm(h_freq) - frame_layer_norm(chest)) ** 2)
+        return ce, conf, aux
+
+    def _global_terms(self, params: dict, ce: torch.Tensor,
+                      conf: torch.Tensor):
+        """(CE + 1e-3 L2, metrics) from the batch's CE and counts."""
+        reg = M.l2_regularization(params)
+        log_ber, ber = M.ber_from_confusion(conf)
+        loss = ce + self._eq_reg_coeff * reg
+        aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
+               "total_loss": loss}
+        return loss, aux
+
+    def _loss_fn(self, params: dict, bits: torch.Tensor, rx_in: torch.Tensor,
+                 h_freq: torch.Tensor | None = None,
+                 snr_db: torch.Tensor | None = None):
+        """(CE + 1e-3 L2, metrics with `snr_mse` and `chan_mse` where their
+        inputs are given)."""
+        ce, conf, more = self._rank_terms(params, bits, rx_in, h_freq, snr_db)
+        loss, aux = self._global_terms(params, ce, conf)
+        aux.update(more)
         return loss, aux
 
     # -- the step with the SNR curriculum --------------------------------------
@@ -136,10 +158,20 @@ class EqualizerTrainer(Trainer):
                               generator: torch.Generator,
                               snr_db: torch.Tensor | None = None):
         """One step on `batch_frames` frames at curriculum SNRs (drawn from
-        `generator` unless given); returns (state, aux)."""
+        `generator` unless given); returns (state, aux).  On a mesh, a
+        data-parallel step (`Trainer._mesh_step`) on the plain data plane."""
         if snr_db is None:
             snr_db = sample_snr(generator, self.batch_frames,
                                 self._snr_offset, tail=self.tc.curriculum_tail)
+        if self.mesh is not None:
+            if self.fused_curriculum:
+                raise ValueError("a mesh step takes the plain data plane "
+                                 "(equalizer_loop.py:159-160)")
+            bits, rx_in, h_freq, noise_pwr = self._synth_mesh(
+                generator, snr_db, want_h=True)
+            extras = [{"h_freq": h, "snr_db": s.to(h.device)} for h, s in
+                      zip(h_freq, torch.chunk(snr_db, len(h_freq)))]
+            return self._mesh_step(state, bits, rx_in, extras, noise_pwr)
         bits, rx_in, h_freq, noise_pwr = self._curriculum_data(generator,
                                                                snr_db)
         params = dict(state.params)
@@ -196,6 +228,7 @@ class EqualizerTrainer(Trainer):
                 best_params = state.params
             if epoch - tc.early_stop > best_epoch:
                 break
-        state = TrainState(best_params, state.opt_state, state.step)
+        state = TrainState(best_params, state.opt_state, state.step,
+                           self._replicate(best_params))
         return state, {"best_epoch": best_epoch, "best_loss": best_loss,
                        "history": history}

@@ -23,6 +23,12 @@ fused route).
 Parameters live in a `TrainState` as a dict keyed as the model's
 `state_dict()`; the model module only supplies the forward function
 (`torch.func.functional_call`).
+
+With `mesh=` (`parallel/mesh.py`, dp only) the step is data parallel, as
+JAX's mesh step (`loop.py:96-106`, `:187-229`): the plain data plane and
+the autograd route on every rank, each rank's shard drawn on its device
+from its own generator and normalized with its own moments
+(`_synth_mesh`), the gradients summed over the ranks (`_mesh_step`).
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
                                                build_synth_spec,
                                                fused_synthesize)
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
+from dl_ofdm_tpu_torch.parallel.mesh import (check_dp_only, module_replicas,
+                                             rank_generators, shard_params)
 from dl_ofdm_tpu_torch.train import metrics as M
 
 
@@ -54,6 +62,8 @@ class TrainState:
     params: dict          # name -> tensor, keyed as the model's state_dict()
     opt_state: dict       # Adam moments and count (`Adam.init`)
     step: int
+    # on a mesh: one copy of `params` per dp rank, on its device
+    replicas: list[dict] | None = None
 
 
 class Adam:
@@ -128,16 +138,29 @@ class Trainer:
     designated frames of a mixed channel (every 3rd of mixRayleigh, every
     4th of mixAll); mobile implies it unless given (`loop.py:78-82`).
     `device` defaults to `cuda` and raises where there is none
-    (`resolve_device`); the model's parameters live there."""
+    (`resolve_device`); the model's parameters live there.
+
+    `mesh` (a dp-only `parallel.mesh.Mesh`) makes the step data parallel
+    over its ranks; `batch_frames` is rounded up to a multiple of dp, the
+    device is rank 0's, and the fused route is never taken
+    (`loop.py:146`)."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig, channel: str = "AWGN",
                  mobile: bool = False, mix: bool | None = None,
                  model: torch.nn.Module | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         if cfg.compute_dtype is not None:
             raise NotImplementedError(
                 "OFDMConfig.compute_dtype (bf16 receiver GEMMs) is not "
                 "ported yet")
+        self.mesh = mesh
+        if mesh is not None:
+            check_dp_only(mesh)
+            rank0 = mesh.dp_devices[0]
+            if device is not None and resolve_device(device) != rank0:
+                raise ValueError(f"device {device} is not the mesh's rank 0 "
+                                 f"({rank0})")
+            device = rank0
         self.device = resolve_device(device)
         self.cfg, self.tc = cfg, tc
         self.plan = build_plan(cfg)
@@ -152,7 +175,8 @@ class Trainer:
             sample_rate=self.plan.sample_rate, mobile=mobile,
             mix=mobile if mix is None else mix)
         self.optimizer = make_optimizer(tc)
-        self.batch_frames = max(1, tc.batch_size // cfg.nsymbol)
+        self.batch_frames = self._round_to_dp(
+            max(1, tc.batch_size // cfg.nsymbol))
         # the fused chain's eligibility (`loop.py:128-170`), apart from the
         # device: the TX operator within 2 MiB, no symbol without data
         self._fused_synth_spec = None
@@ -184,26 +208,44 @@ class Trainer:
                 nsymbol=self.plan.nsymbol, sps=self.plan.samples_per_symbol,
                 nfilter=cfg.nfilter, frame_size=self.plan.frame_size,
                 nbits=cfg.nbits, matmul_dtype=tc.fused_model_matmul_dtype)
-        on_card = self.device.type == "cuda"
+        on_card = self.device.type == "cuda" and mesh is None
         self._use_fused_synth = on_card and self._fused_synth_spec is not None
         self._use_fused_model = on_card and self._fused_model_spec is not None
+        # the model on every rank's device, for the ranks' forward passes
+        self._rank_models = (None if mesh is None else
+                             module_replicas(self.model, mesh.dp_devices))
+
+    def _round_to_dp(self, frames: int) -> int:
+        """`frames` rounded up to a multiple of the mesh's dp (so that every
+        rank gets equal shards, `loop.py:102-106`)."""
+        if self.mesh is None:
+            return frames
+        return frames + (-frames) % self.mesh.shape["dp"]
+
+    def _replicate(self, params: dict) -> list[dict] | None:
+        """Each dp rank's copy of `params`; None off a mesh."""
+        return None if self.mesh is None else shard_params(self.mesh, params)
 
     # -- state ---------------------------------------------------------------
     def init_state(self, generator: torch.Generator | None = None
                    ) -> TrainState:
         """Fresh parameters with flax's initializers, drawn from
-        `generator` (on the trainer's device), and a zero Adam state."""
+        `generator` (on the trainer's device), and a zero Adam state; on a
+        mesh, with the replicas."""
         self.model.reset_parameters(generator)
         params = {k: v.detach().clone()
                   for k, v in self.model.state_dict().items()}
-        return TrainState(params, self.optimizer.init(params), 0)
+        return TrainState(params, self.optimizer.init(params), 0,
+                          self._replicate(params))
 
     # -- data plane ----------------------------------------------------------
     def synthesize(self, n_frames: int, snr_db: torch.Tensor,
                    generator: torch.Generator | None = None,
                    norm_groups: torch.Tensor | None = None,
                    bits: torch.Tensor | None = None,
-                   unit_noise: torch.Tensor | None = None):
+                   unit_noise: torch.Tensor | None = None,
+                   normalize: bool = True,
+                   device: torch.device | None = None):
         """bits -> waveform -> fading -> AWGN -> normalized receiver input.
 
         Returns (bits [B, frame, nbits] int32, rx_in [B, S, K+CP, 2],
@@ -211,8 +253,11 @@ class Trainer:
         then tap gains, then unit noise from `generator`; `bits=` and
         `unit_noise=` replace the first and last draws.  `norm_groups`
         [B, G] one-hot: per-group normalization statistics (the interleaved
-        sweep)."""
-        dev = self.device
+        sweep).  `normalize=False` returns the waveform after AWGN in place
+        of `rx_in` (the mesh point_batch sweep normalizes with moments over
+        every rank).  `device` (the trainer's by default) is where the bits
+        are drawn, and so where everything runs."""
+        dev = self.device if device is None else device
         if bits is None:
             bits = torch.randint(
                 0, 2, (n_frames, self.plan.frame_size, self.cfg.nbits),
@@ -221,22 +266,111 @@ class Trainer:
         ch = self.channel(wf, generator)
         y_iq, noise_pwr = awgn_channel(ch.y, snr_db, generator,
                                        unit_noise=unit_noise)
-        rx_in = batch_norm_ref(y_iq, group_onehot=norm_groups)
+        rx_in = (batch_norm_ref(y_iq, group_onehot=norm_groups)
+                 if normalize else y_iq)
         return bits, rx_in, ch.h_freq, noise_pwr, wf
 
     # -- loss ----------------------------------------------------------------
-    def _loss_fn(self, params: dict, bits: torch.Tensor,
-                 rx_in: torch.Tensor):
-        """(CE + stop_grad(BER) * reg_coeff * L2, metrics) (`loop.py:257`)."""
-        logits = first_output(functional_call(self.model, params, (rx_in,)))
+    def _rank_terms(self, params: dict, bits: torch.Tensor,
+                    rx_in: torch.Tensor, model: torch.nn.Module | None = None):
+        """What the frames give the loss: (CE, confusion counts, further
+        metrics) of `params` on one batch, through `model` (the trainer's
+        by default; a rank's copy on a mesh)."""
+        logits = first_output(functional_call(model or self.model, params,
+                                              (rx_in,)))
         ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
-        reg = M.l2_regularization(params)
         conf = M.confusion_matrix(bits, M.bit_predictions(logits))
+        return ce, conf, {}
+
+    def _global_terms(self, params: dict, ce: torch.Tensor,
+                      conf: torch.Tensor):
+        """(CE + stop_grad(BER) * reg_coeff * L2, metrics) from the batch's
+        CE and counts (`loop.py:257-272`)."""
+        reg = M.l2_regularization(params)
         log_ber, ber = M.ber_from_confusion(conf)
         loss = ce + ber.detach() * self.tc.reg_coeff * reg
         aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
                "total_loss": ce + ber * self.tc.reg_coeff * reg + log_ber}
         return loss, aux
+
+    def _loss_fn(self, params: dict, bits: torch.Tensor,
+                 rx_in: torch.Tensor):
+        """(the loss, metrics) of `params` on one batch."""
+        ce, conf, _ = self._rank_terms(params, bits, rx_in)
+        return self._global_terms(params, ce, conf)
+
+    # -- the mesh (dp) ---------------------------------------------------------
+    def _synth_mesh(self, generator: torch.Generator, snr_db: torch.Tensor,
+                    want_h: bool = False):
+        """The data plane over the dp ranks (`loop.py:206-228`): rank r
+        draws `batch_frames / dp` frames at its slice of `snr_db` on its
+        device from its own generator (`rank_generators`: one draw of
+        `generator` plus r, for JAX's `fold_in(key, axis_index)`) and
+        normalizes them with its own moments.  Returns per-rank lists
+        (bits, rx_in, h_freq or None without `want_h`) and the noise power
+        averaged over the ranks."""
+        devs = self.mesh.dp_devices
+        local = self.batch_frames // len(devs)
+        shards = [self.synthesize(local, snr.to(dev), gen, device=dev)
+                  for dev, gen, snr in zip(devs,
+                                           rank_generators(generator, devs),
+                                           torch.chunk(snr_db, len(devs)))]
+        bits, rx_in, h_freq, noise_pwr, _ = zip(*shards)
+        noise_pwr = torch.stack([p.to(self.device) for p in noise_pwr]).mean()
+        return (list(bits), list(rx_in), list(h_freq) if want_h else None,
+                noise_pwr)
+
+    def _grad_keys(self, params: dict) -> list[str]:
+        """The parameters that take gradients: all of them."""
+        return list(params)
+
+    def _mesh_step(self, state: TrainState, bits: list, rx_in: list,
+                   extras: list, noise_pwr: torch.Tensor,
+                   return_grads: bool = False):
+        """One data-parallel step on per-rank shards (`extras[r]`: further
+        arguments of rank r's `_rank_terms`).
+
+        Every rank runs the forward pass on its shard with its replica; the
+        confusion counts are summed over the ranks first, so the L2 term
+        takes the global BER as JAX's global-batch loss does; each rank's
+        backward pass runs on its CE weighted by its share of the frames;
+        the rank gradients are summed in rank order on rank 0's device, the
+        L2 term's gradient is added once, Adam runs once, and every replica
+        receives a copy of the new parameters (a reduce and a broadcast in
+        place of an all-reduce and replicated Adam: the same parameters)."""
+        dev0 = self.device
+        keys = self._grad_keys(state.params)
+        total = sum(b.shape[0] for b in bits)
+        ranks = []
+        for replica, b, x, extra in zip(state.replicas, bits, rx_in, extras):
+            params = dict(replica)
+            train = [params[k].detach().requires_grad_() for k in keys]
+            params.update(zip(keys, train))
+            ce, conf, more = self._rank_terms(
+                params, b, x, model=self._rank_models[x.device], **extra)
+            ranks.append((train, ce * (b.shape[0] / total), conf, more))
+        ce = sum(w.detach().to(dev0) for _, w, _, _ in ranks)
+        conf = sum(c.to(dev0) for _, _, c, _ in ranks)
+        grads = None
+        for train, w, _, _ in ranks:
+            g = [t.to(dev0) for t in torch.autograd.grad(
+                w, train, materialize_grads=True)]
+            grads = g if grads is None else torch._foreach_add(grads, g)
+        # the parameter term, once, on rank 0's copy (the CE is detached)
+        params = dict(state.params)
+        train = [params[k].detach().requires_grad_() for k in keys]
+        params.update(zip(keys, train))
+        loss, aux = self._global_terms(params, ce, conf)
+        grads = dict(zip(keys, torch._foreach_add(grads, torch.autograd.grad(
+            loss, train, materialize_grads=True))))
+        aux = {k: v.detach() for k, v in aux.items()}
+        for k in ranks[0][3]:
+            aux[k] = sum(m[k].detach().to(dev0) * (b.shape[0] / total)
+                         for (_, _, _, m), b in zip(ranks, bits))
+        aux.update(loss=loss.detach(), noise_power=noise_pwr)
+        if return_grads:
+            aux["grads"] = grads
+        return self._apply(state, grads), aux
 
     # -- steps ---------------------------------------------------------------
     def _apply(self, state: TrainState, grads: dict) -> TrainState:
@@ -247,7 +381,8 @@ class Trainer:
         params = dict(state.params)
         params.update(zip(keys, torch._foreach_add(
             [state.params[k] for k in keys], [updates[k] for k in keys])))
-        return TrainState(params, opt_state, state.step + 1)
+        return TrainState(params, opt_state, state.step + 1,
+                          self._replicate(params))
 
     def train_step(self, state: TrainState, generator: torch.Generator,
                    snr_db: torch.Tensor, words: dict | None = None,
@@ -257,7 +392,15 @@ class Trainer:
         (state, aux).  `fused=None` takes the fused route where it is
         eligible on a CUDA device; True or False asks for one route.
         `words=` hands the fused synthesize chain its random words (CPU
-        only).  `return_grads=True` adds the step's gradients to aux."""
+        only).  `return_grads=True` adds the step's gradients to aux.  On a
+        mesh the step is `_mesh_step` on `_synth_mesh`'s shards."""
+        if self.mesh is not None:
+            if fused or words is not None:
+                raise ValueError("a mesh step takes the plain data plane "
+                                 "and the autograd route (loop.py:146)")
+            bits, rx_in, _, noise_pwr = self._synth_mesh(generator, snr_db)
+            return self._mesh_step(state, bits, rx_in,
+                                   [{}] * len(bits), noise_pwr, return_grads)
         if fused is None:
             fused = self._use_fused_model
         if fused:
@@ -379,7 +522,8 @@ class Trainer:
                                  torch.full((1024,), tc.snr,
                                             device=self.device))
             if grow_batch:
-                self.batch_frames = self._ideal_batch_frames(last_ber)
+                self.batch_frames = self._round_to_dp(
+                    self._ideal_batch_frames(last_ber))
             history.append({"epoch": epoch, "train_loss": epoch_loss,
                             "val_ber": float(val["ber"]),
                             "val_loss": float(val["ce"])})
@@ -390,6 +534,7 @@ class Trainer:
                 best_params = state.params
             if epoch - tc.early_stop > best_epoch:
                 break
-        state = TrainState(best_params, state.opt_state, state.step)
+        state = TrainState(best_params, state.opt_state, state.step,
+                           self._replicate(best_params))
         return state, {"best_epoch": best_epoch, "best_loss": best_loss,
                        "history": history}

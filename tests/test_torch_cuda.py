@@ -411,3 +411,78 @@ def test_equalizer_step_on_card(cuda):
         assert torch.equal(state.params[k], v), k
     assert set(state.opt_state["mu"]) == {
         k for k in state.params if k.startswith("Equalizer.")}
+
+
+def _ring_slices(devs, b, hl, hr, l, seed):
+    """Each rank's shard [b, l, 2] on its device and its strided boundary
+    slices: the last hl samples and the first hr."""
+    g = torch.Generator().manual_seed(seed)
+    shards = [torch.randn(b, l, 2, generator=g).to(d) for d in devs]
+    return ([x[:, -hl:, :] for x in shards], [x[:, :hr, :] for x in shards])
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_ring_exchange_kernel_matches_plain_version(cuda, p):
+    """P virtual ranks on one card, one launch a call (P = 1: a rank
+    signals itself): the receive buffers bit-equal to the plain version's,
+    on aligned (16-byte) and unaligned slices, twice (the epoch grows)."""
+    from dl_ofdm_tpu_torch.parallel import halo
+    before = halo.ring_exchange_kernel.launches
+    calls = 0
+    for hl, hr, l in ((6, 6, 560), (3, 1, 37), (12, 8, 4096)):
+        lt, rh = _ring_slices([cuda] * p, 64, hl, hr, l, p + l)
+        for _ in range(2):
+            got = halo.ring_exchange(lt, rh)
+            calls += 1
+            want = halo.ring_exchange_ref(lt, rh)
+            torch.cuda.synchronize()
+            for a, b in zip(got[0] + got[1], want[0] + want[1]):
+                assert torch.equal(a, b)
+    assert halo.ring_exchange_kernel.launches == before + calls
+
+
+@pytest.mark.parametrize("p,off", [(4, 6), (8, 0)])
+def test_halo_fir_dma_on_card_matches_fir_same_iq(cuda, p, off):
+    """The halo FIR on P virtual ranks of one card, both exchanges: one ring
+    launch ('dma') and one FIR launch a rank; bit-equal to `fir_same_iq`
+    of the whole block."""
+    import numpy as np
+    from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
+    from dl_ofdm_tpu_torch.parallel import halo
+    g = torch.Generator(device=cuda).manual_seed(p)
+    x = torch.randn(64, p * 560, 2, device=cuda, generator=g)
+    h = torch.randn(64, 13, 2, device=cuda, generator=g)
+    whole = fir_same_iq(x, h, np.full(64, off))
+    for exchange in ("ppermute", "dma"):
+        rings = halo.ring_exchange_kernel.launches
+        firs = tpk.fir_shift_accum_kernel.launches
+        out = halo.halo_fir_same_iq(list(torch.chunk(x, p, dim=1)), h, off,
+                                    [cuda] * p, exchange=exchange)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(out, dim=1), whole), exchange
+        assert halo.ring_exchange_kernel.launches - rings == (
+            exchange == "dma")
+        assert tpk.fir_shift_accum_kernel.launches - firs == p
+
+
+def test_ring_exchange_across_cards(cuda):
+    """One rank a card with peer access, one launch a card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the cross-card ring needs two or more CUDA devices; "
+                    f"this machine has {n}")
+    from dl_ofdm_tpu_torch.parallel import halo
+    devs = [torch.device("cuda", i) for i in range(n)]
+    for i in range(n):
+        for j in (i - 1, i + 1):
+            if j % n != i and not halo.enable_peer_access(i, j % n):
+                pytest.skip(f"cuda:{i} cannot reach cuda:{j % n}")
+    lt, rh = _ring_slices(devs, 64, 6, 6, 560, 0)
+    before = halo.ring_exchange_kernel.launches
+    got = halo.ring_exchange(lt, rh)
+    want = halo.ring_exchange_ref(lt, rh)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    assert halo.ring_exchange_kernel.launches == before + n
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.device == b.device and torch.equal(a, b)

@@ -28,6 +28,7 @@ from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
 from dl_ofdm_tpu_torch.eval import sweep as tsweep
 from dl_ofdm_tpu_torch.models import receiver as trecv
 from dl_ofdm_tpu_torch.models.equalizers import EQUALIZER_REGISTRY as TREG
+from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
 from dl_ofdm_tpu_torch.train import checkpoint as tckpt
 from dl_ofdm_tpu_torch.train import curriculum as tcur
 from dl_ofdm_tpu_torch.train import transfer as ttransfer
@@ -265,8 +266,9 @@ def test_equalizer_trainer_steps_keep_the_receiver_frozen():
             assert not torch.equal(v, eq0[k]), k
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         tt.fit(max_epochs=1, ckpt_dir="x")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(), mesh=object(),
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(),
+                         mesh=make_mesh(["cpu"] * 2, dp=1, tp=2),
                          device="cpu")
 
 

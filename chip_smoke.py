@@ -82,7 +82,9 @@ Phases, each printed with its elapsed seconds:
     frames a point): finite BERs that fall with SNR.
 12. the PRNG probe (`python -m dl_ofdm_tpu_torch.ops.prng_probe`): the
     kernel's words equal `philox_words` bit for bit and pass the checks of
-    `scripts/prng_quality_check.py`; its time, the plain version's, bound.
+    `scripts/prng_quality_check.py`; its time from a CUDA graph of 100
+    calls (eager beside it), the plain version's, and its bound,
+    max(bytes, integer operations of its Philox calls).
 13. `fir_shift_accum` against its plain version on the channel's own FIR
     kernels: ETU (one offset) and mixRayleigh (four offsets, zero-padded
     short kernels) at 30,000 and 73 frames of 560 samples; bit-equal, and
@@ -138,14 +140,20 @@ Phases, each printed with its elapsed seconds:
          (2,048 frames of 560), 13 taps, offsets 6 and 0, P = 4 and 8,
          both exchanges: bit-equal to `fir_same_iq` of the whole block;
          the ring kernel bit-equal to its plain version at P = 1, 2, 4, 8
-         with launches equal to the calls; device times (CUDA graphs of
-         100 calls; the ring's replayed with its flags set back to the
-         epoch before the first, `ring_graph_ms`) and eager times of the
-         kernel, its plain version, one `_foreach_copy_` of the same
-         slices (the library yardstick) and an empty launch; the bytes
-         bound; the halo FIR with each exchange (events);
+         with launches equal to the calls; the ring at P = 1, 2, 4, 8
+         captured in one CUDA graph and replayed 100 times with new shard
+         contents and nothing reset, each replay bit-equal; the halo FIR
+         ('dma') captured at full width for each P and offset and replayed
+         with new blocks and kernels, each replay bit-equal to
+         `fir_same_iq`; device times (CUDA graphs of 100 calls) and eager
+         times of the kernel, its plain version, one `_foreach_copy_` of
+         the same slices (the library yardstick) and an empty launch; the
+         bytes bound; the halo FIR with each exchange (graph and eager);
       d. one rank a card where the machine has two or more cards (peer
-         access printed); otherwise one line that says it was not run.
+         access printed): 20 eager calls back to back with new inputs and
+         no host sync, and one graph a card replayed together 100 times
+         with new inputs, each bit-equal to the plain version; the halo
+         FIR at full width; otherwise one line that says it was not run.
  5. (printed last) one `{"kernels": [...]}` line with all six kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts), of
@@ -261,6 +269,9 @@ def check_curve(name, ber, ref, ref_name):
         raise AssertionError(f"{name} sweep misses {ref_name} at SNR {bad}")
 
 
+# integer operations of one Philox4x32-10 call: 10 rounds of two
+# mul.wide.u32 and two 3-input XORs
+PHILOX_INT_OPS = 40
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 # complex_dense's timed shapes: the sweep's fft_like (1,968 frames x 7
 # symbols), the equalizer's ToFreq/CorrT/ToTime when serving, the autograd
@@ -300,27 +311,39 @@ def synth_spec(channel: str, nbits: int, mobile: bool = False, **cfg):
 
 
 def synth_work(spec, b: int, n_dop: int = 0, want_h: bool = False):
-    """(bytes, float32 operations) the synthesize function needs for b
-    frames, n_dop of them Doppler rows: every input read once, every output
-    written once, the statistics once as [10, L] whatever the kernel's grid;
-    the TX operator's complex MACs (8 operations each), the FIR's, the
-    noise scaling and the partial sums; on a Doppler row each sinusoid's
-    argument and sum (4 operations, the cosine counted as one) and the
-    per-symbol kernels; with want_h the true channel's complex MACs.
-    Box-Muller and Philox are not counted."""
+    """(bytes, float32 operations, 32-bit integer operations, special
+    functions) the synthesize function needs for b frames, n_dop of them
+    Doppler rows: every input read once, every output written once, the
+    statistics once as [10, L] whatever the kernel's grid; the TX
+    operator's complex MACs (8 operations each), the FIR's, the noise
+    scaling and the partial sums; on a Doppler row each sinusoid's
+    argument and sum and the per-symbol kernels; with want_h the true
+    channel's complex MACs.  The random draws: every Philox4x32-10 call
+    (PHILOX_INT_OPS integer operations) of the symbol indices (one a 4
+    symbols), the static taps and the noise (two a 4 Box-Mullers) and the
+    Jakes phases (one a 4 phases); each Box-Muller's log, sqrt, sin and
+    cos (one special function each) and its 4 multiplies; each Jakes
+    cosine (one special function)."""
     length, d = spec.length, spec.frame_size
     s1 = spec.nsymbol if spec.mobile else 1
     n_bytes = (4 * b + 16 + 2 * spec.w_r.nbytes + 2 * spec.bias_r.nbytes
                + 4 * b * d + 4 * 4 * b * length + 4 * 10 * length
                + (8 * b * s1 * spec.nfft if want_h else 0))
-    flops = b * (8 * d * spec.sps + 2 * length + 16 * length
+    n_box = length + (spec.taps if spec.do_fir else 0)     # a frame
+    flops = b * (8 * d * spec.sps + 2 * length + 16 * length + 4 * n_box
                  + (8 * spec.fir_u * length if spec.do_fir else 0))
+    philox = b * (-(-d // 4) + 2 * -(-length // 4)
+                  + (2 * -(-spec.taps // 4) if spec.do_fir else 0))
+    sfu = 4 * b * n_box
     if spec.mobile:
+        ss = spec.jakes_base_r.shape[0]
         flops += n_dop * spec.nsymbol * spec.taps * (
-            2 * 48 * 5 + 6 * spec.fir_u)
+            2 * ss * 4 + 6 * spec.fir_u)
+        philox += n_dop * 2 * -(-(ss * spec.taps) // 4)
+        sfu += n_dop * spec.nsymbol * spec.taps * 2 * ss
     if want_h:
         flops += b * s1 * spec.nfft * spec.taps * 8
-    return n_bytes, flops
+    return n_bytes, flops, PHILOX_INT_OPS * philox, sfu
 
 
 def model_work(spec, b: int, n_params: int):
@@ -383,16 +406,18 @@ def phase_synth(tfs, dev, hbm_bps, f32_flops) -> dict:
                 spec, seeds, std), 50)
             p_ms = events_ms(lambda: tfs.fused_synthesize_ref(
                 spec, b, std, seeds=seeds), 50)
-            n_bytes, flops = synth_work(spec, b)
-            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+            n_bytes, flops, int_ops, sfu = synth_work(spec, b)
+            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops,
+                                 int_ops, sfu)
             big = SYNTH_BIG_FRAMES
             std_big = tfs.noise_std(torch.full((big,), 5.0, device=dev))
             big_ms = events_ms(lambda: tfs.fused_synthesize_kernel(
                 spec, seeds, std_big), 20)
-            big_bound, _ = bound_of(*synth_work(spec, big), hbm_bps,
-                                    f32_flops)
+            w = synth_work(spec, big)
+            big_bound, _ = bound_of(w[0], w[1], hbm_bps, f32_flops, *w[2:])
             line.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=n_bytes,
-                        flops=flops, bound_ms=bound, bound_by=by,
+                        flops=flops, int_ops=int_ops, special_functions=sfu,
+                        bound_ms=bound, bound_by=by,
                         two_calls_identical=True,
                         plan=tfs.synth_launch_plan(spec, b, dev.index or 0
                                                    )._asdict(),
@@ -802,8 +827,19 @@ def phase_train(tfm, tfs, dev) -> dict:
     return launches
 
 
-def bound_of(n_bytes, flops, hbm_bps, f32_flops):
-    t_b, t_o = n_bytes / hbm_bps * 1e3, flops / f32_flops * 1e3
+def bound_of(n_bytes, flops, hbm_bps, f32_flops, int_ops=0, sfu_ops=0):
+    """(least ms, "bytes" or "operations"): the bytes over the memory rate
+    against the operations over their peak rates.  A Hopper SM has 128
+    float32 lanes (two operations an FMA), 64 for 32-bit integer
+    arithmetic and logic and 16 for the special functions (CUDA C++
+    Programming Guide, arithmetic throughput of compute capability 9.0),
+    so integer operations run at a quarter of `f32_flops` and special
+    functions at a sixteenth; every instruction also takes one of the
+    SM's 128 issue slots a clock, FMAs counted two operations to one."""
+    t_b = n_bytes / hbm_bps * 1e3
+    t_o = max(flops / f32_flops, 4 * int_ops / f32_flops,
+              16 * sfu_ops / f32_flops,
+              (flops + 2 * int_ops + 2 * sfu_ops) / f32_flops) * 1e3
     return max((t_b, "bytes"), (t_o, "operations"))
 
 
@@ -860,10 +896,12 @@ def phase_synth_mobile(tfs, dev, hbm_bps, f32_flops) -> dict:
                 spec, seeds, std), 50)
             p_ms = events_ms(lambda: tfs.fused_synthesize_ref(
                 spec, b, std, seeds=seeds), 10)
-            n_bytes, flops = synth_work(spec, b, n_dop)
-            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+            n_bytes, flops, int_ops, sfu = synth_work(spec, b, n_dop)
+            bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops,
+                                 int_ops, sfu)
             line.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=n_bytes,
-                        flops=flops, bound_ms=bound, bound_by=by)
+                        flops=flops, int_ops=int_ops, special_functions=sfu,
+                        bound_ms=bound, bound_by=by)
             out["line"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                            "bound_ms": bound, "bound_by": by,
                            "library_ms": None, "check": "pass"}
@@ -1009,10 +1047,10 @@ def phase_train_mobile(tfm, tfs, dev) -> dict:
     return launches
 
 
-def phase_probe(dev, hbm_bps) -> dict:
-    """Phase 12: the PRNG probe on the card."""
+def phase_probe(dev, hbm_bps, f32_flops) -> dict:
+    """Phase 12: the PRNG probe on the card; its time from a CUDA graph
+    (eager beside it) against max(bytes, integer operations)."""
     import torch
-    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
     from dl_ofdm_tpu_torch.ops import prng_probe as pp
     torch.cuda.synchronize()
     pp.probe_words_kernel.launches = 0
@@ -1022,21 +1060,37 @@ def phase_probe(dev, hbm_bps) -> dict:
         raise AssertionError("the probe's entry point did not launch its "
                              "kernel")
     seeds = torch.tensor(pp.SEEDS, dtype=torch.int64, device=dev)
-    k_ms = events_ms(lambda: pp.probe_words_kernel(seeds), 50)
-    p_ms = events_ms(lambda: pp.probe_words_ref(seeds), 10)
-    n_bytes = 16 + 4 * pp.N_STREAMS * pp.ROWS * pp.N_WORDS
-    bound = n_bytes / hbm_bps * 1e3
+    times = {"kernel": [], "plain": []}
+    for n in ("kernel", "plain", "plain", "kernel"):
+        times[n].append(time_ms(lambda: pp.probe_words_kernel(seeds), 100)
+                        if n == "kernel" else
+                        (events_ms(lambda: pp.probe_words_ref(seeds), 10),))
+    k_ms = sum(t[0] for t in times["kernel"]) / 2
+    k_eager = sum(t[1] for t in times["kernel"]) / 2
+    p_ms = sum(t[0] for t in times["plain"]) / 2
+    n_words = pp.N_STREAMS * pp.ROWS * pp.N_WORDS
+    n_bytes = 16 + 4 * n_words
+    int_ops = PHILOX_INT_OPS * n_words // 4
+    bound, by = bound_of(n_bytes, 0, hbm_bps, f32_flops, int_ops)
     words = pp.probe_words_kernel(seeds).to(torch.int64) & 0xFFFFFFFF
     err = float((words - pp.probe_words_ref(seeds)).abs().max())
-    line = {"phase": 12, **q, "kernel_ms": k_ms, "plain_ms": p_ms,
-            "bytes": n_bytes, "bound_ms": bound, "bound_by": "bytes",
-            "launches": launches}
+    line = {"phase": 12, **q, "kernel_ms": k_ms, "eager_ms": k_eager,
+            "kernel_ms_runs": [t[0] for t in times["kernel"]],
+            "plain_ms": p_ms, "bytes": n_bytes, "int_ops": int_ops,
+            "bytes_ms": n_bytes / hbm_bps * 1e3,
+            "int_ops_ms": 4 * int_ops / f32_flops * 1e3, "bound_ms": bound,
+            "bound_by": by, "share_of_bound": bound / k_ms,
+            "launches": launches,
+            "timing": "CUDA graph of 100 calls; eager: events around 100 "
+                      "calls"}
     print(json.dumps(line), flush=True)
     log(f"philox_probe: words == philox_words, checks pass; kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms")
+        f"{k_ms:.4f} ms graph, {k_eager:.4f} eager; plain {p_ms:.3f} ms; "
+        f"bound {bound:.4f} ms ({by}; integer work "
+        f"{line['int_ops_ms']:.4f}): {100 * bound / k_ms:.0f} % of it")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None, "check": "pass"}
+            "eager_ms": k_eager, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "check": "pass"}
 
 
 # (channel, frames) of phase 13: one offset (ETU), four offsets and
@@ -1699,31 +1753,100 @@ def phase_mesh_sweeps(tpk, dev, trainer, csv_ber) -> None:
                           "complex_dense_launches": launches}), flush=True)
 
 
-def ring_graph_ms(halo, lt, rh, iters: int = 100) -> float:
-    """Device ms of one ring launch: `iters` calls captured in one CUDA
-    graph, each with its own epoch, and replayed after the ring's flags are
-    set back to the epoch before the first, so that every replayed launch
-    waits on its partners as an eager one does."""
+def rings_equal(got, want) -> bool:
+    """Two (recv_l, recv_r) results bit-equal, tensor by tensor, each on
+    the same device."""
     import torch
-    halo.ring_exchange_kernel(lt, rh)              # the ring's flags exist
-    torch.cuda.synchronize()
-    ring = halo._RINGS[tuple(t.device for t in lt)]
-    e0 = ring.epoch
+    return all(a.device == b.device and torch.equal(a, b)
+               for a, b in zip(got[0] + got[1], want[0] + want[1]))
+
+
+def ring_graph_replays(halo, dev, x, replays: int = 100) -> None:
+    """The ring at P = 1, 2, 4 and 8 on the halo path's slices, captured in
+    one CUDA graph and replayed `replays` times, new shard contents copied
+    in before each replay and nothing reset: every replay bit-equal to
+    the plain version of those contents."""
+    import torch
+    block = x[:, :8 * FIR_LEN, :].clone()
+    sets = []
+    for p in (1, 2, 4, 8):
+        shards = list(torch.chunk(block, p, dim=1))
+        sets.append(([s[:, -6:, :] for s in shards],
+                     [s[:, :6, :] for s in shards]))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            halo.ring_exchange_kernel(lt, rh)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(2):                             # warm-up, then timed
-        for f in ring.flags.values():
-            f.fill_(e0)
-        start.record()
+        outs = [halo.ring_exchange_kernel(lt, rh) for lt, rh in sets]
+    gen = torch.Generator(device=dev).manual_seed(193)
+    for i in range(replays):
+        block.normal_(generator=gen)
         graph.replay()
-        end.record()
-        torch.cuda.synchronize()
+        for p, (lt, rh), got in zip((1, 2, 4, 8), sets, outs):
+            if not rings_equal(got, halo.ring_exchange_ref(lt, rh)):
+                raise AssertionError(f"ring_exchange graph replay {i} at "
+                                     f"P = {p}: differs from the plain "
+                                     "version")
     del graph
-    return start.elapsed_time(end) / iters
+    log(f"ring_exchange at P = 1, 2, 4, 8 in one CUDA graph: {replays} "
+        "replays with new shard contents, nothing reset, each bit-equal "
+        "to the plain version")
+
+
+def halo_fir_graph_replays(halo, fir_same_iq, dev, x, h,
+                           replays: int = 3) -> None:
+    """`halo_fir_same_iq(exchange='dma')` at full width captured in a CUDA
+    graph as it stands, for each P and offset, and replayed `replays` times
+    with new blocks and kernels: each replay bit-equal to `fir_same_iq` of
+    the whole block."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(194)
+    for p in HALO_PS:
+        shards = list(torch.chunk(x, p, dim=1))
+        for off in HALO_OFFSETS:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = halo.halo_fir_same_iq(shards, h, off, [dev] * p,
+                                          exchange="dma")
+            for i in range(replays):
+                x.normal_(generator=gen)
+                h.normal_(generator=gen)
+                graph.replay()
+                if not torch.equal(torch.cat(y, dim=1), fir_same_iq(
+                        x, h, np.full(HALO_B, off))):
+                    raise AssertionError(
+                        f"graphed halo FIR P {p} offset {off}, replay {i}: "
+                        "differs from fir_same_iq of the whole block")
+            del graph, y
+    torch.cuda.empty_cache()
+    log(f"halo FIR ('dma') in a CUDA graph at {HALO_B} x {x.shape[1]}, P "
+        f"{HALO_PS}, offsets {HALO_OFFSETS}: {replays} replays each with "
+        "new blocks and kernels, bit-equal to fir_same_iq")
+
+
+def ring_host_us(halo, lt, rh, iters: int = 1000) -> dict:
+    """Host µs a call of the ring wrapper and of its parts, from the host
+    clock over `iters` calls each, with nothing waiting on the card: the
+    whole call, the launch plan's lookup (its cache key), the receive
+    buffers, and an empty kernel launched through ctypes."""
+    import torch
+    lib = halo._ring_lib()
+
+    def empty():
+        lib.ring_empty_launch(torch.cuda.current_stream().cuda_stream)
+
+    launch = halo._launch_of(lt, rh)
+    parts = {"call": lambda: halo.ring_exchange_kernel(lt, rh),
+             "plan_lookup": lambda: halo._launch_of(lt, rh),
+             "receive_buffers": launch.alloc, "empty_launch": empty}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out[name] = (time.perf_counter() - t) * 1e6 / iters
+        torch.cuda.synchronize()
+    return out
 
 
 def phase_halo(tpk, dev, hbm_bps) -> dict:
@@ -1794,8 +1917,9 @@ def phase_halo(tpk, dev, hbm_bps) -> dict:
         f"{HALO_PS}, offsets {HALO_OFFSETS}, both exchanges: {runs} runs "
         f"bit-equal to fir_same_iq; ring launches {out['launches']}, FIR "
         f"launches {out['fir_launches']}")
-    # device times from CUDA graphs of 100 calls (the ring's with its flags
-    # set back before each replay, `ring_graph_ms`), eager times from events
+    ring_graph_replays(halo, dev, x)
+    halo_fir_graph_replays(halo, fir_same_iq, dev, x, h)
+    # device times from CUDA graphs of 100 calls, eager times from events
     # around 100 calls issued from Python
     lib = halo._ring_lib()
 
@@ -1818,30 +1942,35 @@ def phase_halo(tpk, dev, hbm_bps) -> dict:
         times = {n: [] for n in fns}
         for n in ("plain", "kernel", "library", "library", "kernel",
                   "plain"):
-            times[n].append((ring_graph_ms(halo, lt, rh),
-                             events_ms(fns[n], 100)) if n == "kernel"
-                            else time_ms(fns[n], 100))
+            times[n].append(time_ms(fns[n], 100))
         ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
         eager = {n: sum(t[1] for t in v) / len(v) for n, v in times.items()}
         n_bytes = 2 * 2 * p * HALO_B * 6 * 2 * 4    # read once, written once
         bound = n_bytes / hbm_bps * 1e3
-        fir_ms = {ex: events_ms(lambda: halo.halo_fir_same_iq(
+        fir_ms = {ex: time_ms(lambda: halo.halo_fir_same_iq(
             shards, h, 6, [dev] * p, exchange=ex), 10)
             for ex in ("ppermute", "dma")}
+        host = ring_host_us(halo, lt, rh)
         line = {"phase": 19, "part": "halo", "P": p, "ring_ms": ms["kernel"],
                 "plain_ms": ms["plain"], "foreach_copy_ms": ms["library"],
                 "empty_launch_ms": empty_ms, "eager_ms": eager,
-                "empty_launch_eager_ms": empty_eager, "bytes": n_bytes,
-                "bound_ms": bound, "halo_fir_ms": fir_ms,
-                "timing": "CUDA graphs of 100 calls; eager: events around "
-                          "100 calls"}
+                "empty_launch_eager_ms": empty_eager,
+                "runs_ms": {n: v for n, v in times.items()},
+                "bytes": n_bytes, "bound_ms": bound,
+                "halo_fir_ms": {ex: t[0] for ex, t in fir_ms.items()},
+                "halo_fir_eager_ms": {ex: t[1] for ex, t in fir_ms.items()},
+                "host_us": host,
+                "timing": "CUDA graphs of 100 calls (halo FIR: 10); eager: "
+                          "events around the same calls"}
         log(f"ring_exchange P {p} (graph / eager ms): kernel "
             f"{ms['kernel']:.4f} / {eager['kernel']:.4f}, plain "
             f"{ms['plain']:.4f} / {eager['plain']:.4f}, one _foreach_copy_ "
             f"{ms['library']:.4f} / {eager['library']:.4f}, empty launch "
-            f"{empty_ms:.4f} / {empty_eager:.4f}, bytes bound {bound:.6f}; "
-            f"halo FIR ppermute {fir_ms['ppermute']:.3f} ms, dma "
-            f"{fir_ms['dma']:.3f} ms")
+            f"{empty_ms:.4f} / {empty_eager:.4f}, bytes bound {bound:.7f}; "
+            f"halo FIR ppermute {fir_ms['ppermute'][0]:.3f} / "
+            f"{fir_ms['ppermute'][1]:.3f} ms, dma {fir_ms['dma'][0]:.3f} / "
+            f"{fir_ms['dma'][1]:.3f} ms; host µs a call "
+            + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
         print(json.dumps(line), flush=True)
         if p == HALO_PS[0]:
             out.update(ms=ms["kernel"], eager_ms=eager["kernel"],
@@ -1854,12 +1983,15 @@ def phase_halo(tpk, dev, hbm_bps) -> dict:
     return out
 
 
-def phase_halo_cross_card() -> None:
+def phase_halo_cross_card(calls: int = 20, replays: int = 100) -> None:
     """Phase 19d: the ring and the halo FIR with one rank a card, where
     the machine has two or more cards: the ring bit-equal to its plain
-    version with one launch a card, the halo FIR at phase 19c's width
-    bit-equal to `fir_same_iq` on card 0, and times from the host clock
-    around 100 calls that ends in a synchronize of every card."""
+    version with one launch a card; `calls` eager calls back to back with
+    new inputs and no host sync, each bit-equal; one CUDA graph a card
+    holding that card's part, the graphs replayed together `replays`
+    times with new inputs, each replay bit-equal; the halo FIR at phase
+    19c's width bit-equal to `fir_same_iq` on card 0; times from the host
+    clock around calls that end in a synchronize of every card."""
     import torch
     from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
     from dl_ofdm_tpu_torch.parallel import halo
@@ -1899,8 +2031,7 @@ def phase_halo_cross_card() -> None:
     got = halo.ring_exchange_kernel(lt, rh)
     want = halo.ring_exchange_ref(lt, rh)
     sync()
-    ring_equal = all(a.device == b.device and torch.equal(a, b)
-                     for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    ring_equal = rings_equal(got, want)
     y = halo.halo_fir_same_iq(shards, h, 6, devs, exchange="dma")
     sync()
     fir_equal = torch.equal(torch.cat([t.to(devs[0]) for t in y], dim=1),
@@ -1910,18 +2041,68 @@ def phase_halo_cross_card() -> None:
         raise AssertionError(f"cross-card: ring equal {ring_equal}, halo "
                              f"FIR equal {fir_equal}, {launches} ring "
                              f"launches for 2 calls on {n} cards")
+    # new inputs for every call or replay, on the ring's own slices
+    small = [torch.empty(HALO_B, FIR_LEN, 2, device=d) for d in devs]
+    s_lt = [s[:, -6:, :] for s in small]
+    s_rh = [s[:, :6, :] for s in small]
+    gens = [torch.Generator(device=d).manual_seed(195 + i)
+            for i, d in enumerate(devs)]
+
+    def refill():
+        for s, g in zip(small, gens):
+            s.normal_(generator=g)
+
+    runs = []
+    for _ in range(calls):
+        refill()
+        runs.append((halo.ring_exchange_kernel(s_lt, s_rh),
+                     halo.ring_exchange_ref(s_lt, s_rh)))
+    sync()
+    if not all(rings_equal(g_, w_) for g_, w_ in runs):
+        raise AssertionError(f"cross-card: {calls} eager calls back to back "
+                             "differ from the plain version")
+    recv = halo.ring_buffers(s_lt, s_rh)
+    graphs = []
+    for d in devs:
+        with torch.cuda.device(d):
+            graph = torch.cuda.CUDAGraph()
+            # a capture stream of this card (torch's default one lives on
+            # the card that first captured)
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(d)):
+                halo.ring_exchange_kernel(s_lt, s_rh, out=recv, device=d)
+            graphs.append(graph)
+
+    def replay_all():
+        for d, graph in zip(devs, graphs):
+            with torch.cuda.device(d):
+                graph.replay()
+
+    for i in range(replays):
+        refill()
+        replay_all()
+        want = halo.ring_exchange_ref(s_lt, s_rh)
+        sync()
+        if not rings_equal(recv, want):
+            raise AssertionError(f"cross-card: per-card graphs, replay {i}: "
+                                 "differs from the plain version")
+    log(f"cross-card ({n} cards): {calls} eager calls back to back and "
+        f"{replays} replays of one graph a card, new inputs each, all "
+        "bit-equal to the plain version")
     ms = {"kernel": host_ms(lambda: halo.ring_exchange_kernel(lt, rh)),
           "plain": host_ms(lambda: halo.ring_exchange_ref(lt, rh)),
+          "graphs_one_a_card": host_ms(replay_all),
           "halo_fir_dma": host_ms(lambda: halo.halo_fir_same_iq(
               shards, h, 6, devs, exchange="dma"), 10),
           "halo_fir_ppermute": host_ms(lambda: halo.halo_fir_same_iq(
               shards, h, 6, devs, exchange="ppermute"), 10)}
+    del graphs
     log(f"cross-card ({n} cards): ring bit-equal to its plain version, one "
         f"launch a card; halo FIR bit-equal to fir_same_iq; host-clock ms "
         f"{ms}")
     print(json.dumps({"phase": 19, "part": "cross-card", "run": True,
                       "devices": n, "peer_access": peers,
-                      "ring_launches": launches, "ms": ms,
+                      "ring_launches": launches, "eager_calls": calls,
+                      "graph_replays": replays, "ms": ms,
                       "timing": "host clock around calls, all cards "
                                 "synchronized"}), flush=True)
 
@@ -2120,7 +2301,7 @@ def main() -> None:
     mobile = phase_synth_mobile(tfs, dev, hbm_bps, f32_flops)
     phase_long_frames(tfs, tfm, dev)
     launches_mobile = phase_train_mobile(tfm, tfs, dev)
-    probe = phase_probe(dev, hbm_bps)
+    probe = phase_probe(dev, hbm_bps, f32_flops)
 
     # -- 13-17. the FIR kernel, the equalizer stage -------------------------
     fir_line = phase_fir(tpk, dev, hbm_bps, f32_flops)

@@ -10,11 +10,13 @@
 // version is dl_ofdm_tpu_torch/ops/fused_synth.py::philox_words.
 //
 // Bound on an H100: the output, 8 streams x 32 rows x 16,384 words = 16 MiB,
-// takes 5 us at 3.35 TB/s; the 1 M Philox calls (10 rounds of two 32x32
-// multiplies) are integer work of the same order.  Design: one thread per
-// counter, four words stored as one 16-byte write; neighbouring threads
-// write neighbouring addresses; 32-bit index arithmetic (64-bit division
-// is a software routine).
+// takes 5 us at 3.35 TB/s; the 1 M Philox calls (10 rounds of two
+// mul.wide.u32 and two 3-input XORs, 42 M integer operations) take 2.5 us
+// at 64 integer operations a clock on each of 132 SMs, so the store bounds
+// it.  Design: one thread per counter, four words stored as one 16-byte
+// write; neighbouring threads write neighbouring addresses; 32-bit index
+// arithmetic (64-bit division is a software routine).  It runs at 65 % of
+// that bound on an H100 SXM (CUDA graph of 100 calls), so it stays as it is.
 //
 // Plain C interface for ctypes (dl_ofdm_tpu_torch/ops/cuda_build.py); the
 // launch goes on the caller's stream and the function returns

@@ -423,9 +423,10 @@ def _ring_slices(devs, b, hl, hr, l, seed):
 
 @pytest.mark.parametrize("p", [1, 2, 4, 8])
 def test_ring_exchange_kernel_matches_plain_version(cuda, p):
-    """P virtual ranks on one card, one launch a call (P = 1: a rank
-    signals itself): the receive buffers bit-equal to the plain version's,
-    on aligned (16-byte) and unaligned slices, twice (the epoch grows)."""
+    """P virtual ranks on one card, one launch of the copy template a call
+    (P = 1: a rank receives its own slices): the receive buffers bit-equal
+    to the plain version's, on aligned (16-byte) and unaligned slices,
+    twice."""
     from dl_ofdm_tpu_torch.parallel import halo
     before = halo.ring_exchange_kernel.launches
     calls = 0
@@ -486,3 +487,121 @@ def test_ring_exchange_across_cards(cuda):
     assert halo.ring_exchange_kernel.launches == before + n
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         assert a.device == b.device and torch.equal(a, b)
+
+
+def _sync_all(devs):
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+
+
+def _assert_ring_equal(got, want):
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_ring_exchange_graph_replays_with_new_inputs(cuda, p):
+    """The ring captured once in a CUDA graph (P virtual ranks of one card,
+    the copy template) and replayed 100 times, new shard contents copied
+    in before each replay and nothing reset: every replay bit-equal to
+    the plain version of those contents; the capture is one launch."""
+    from dl_ofdm_tpu_torch.parallel import halo
+    g = torch.Generator(device=cuda).manual_seed(p)
+    shards = [torch.randn(64, 560, 2, device=cuda, generator=g)
+              for _ in range(p)]
+    lt = [x[:, -6:, :] for x in shards]
+    rh = [x[:, :6, :] for x in shards]
+    halo.ring_exchange_kernel(lt, rh)       # warm-up: build and load
+    torch.cuda.synchronize()
+    before = halo.ring_exchange_kernel.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = halo.ring_exchange_kernel(lt, rh)
+    assert halo.ring_exchange_kernel.launches == before + 1
+    for _ in range(100):
+        for x in shards:
+            x.normal_(generator=g)
+        graph.replay()
+        _assert_ring_equal(got, halo.ring_exchange_ref(lt, rh))
+
+
+@pytest.mark.parametrize("p,off", [(4, 6), (8, 0)])
+def test_halo_fir_dma_graph_matches_fir_same_iq(cuda, p, off):
+    """`halo_fir_same_iq(exchange='dma')` on P virtual ranks captured in a
+    CUDA graph as it stands, replayed with new blocks and kernels: each
+    replay bit-equal to `fir_same_iq` of the whole block."""
+    import numpy as np
+    from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
+    from dl_ofdm_tpu_torch.parallel import halo
+    g = torch.Generator(device=cuda).manual_seed(10 + p)
+    x = torch.randn(64, p * 560, 2, device=cuda, generator=g)
+    h = torch.randn(64, 13, 2, device=cuda, generator=g)
+    shards = list(torch.chunk(x, p, dim=1))
+    halo.halo_fir_same_iq(shards, h, off, [cuda] * p, exchange="dma")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = halo.halo_fir_same_iq(shards, h, off, [cuda] * p,
+                                    exchange="dma")
+    for _ in range(5):
+        x.normal_(generator=g)
+        h.normal_(generator=g)
+        graph.replay()
+        assert torch.equal(torch.cat(out, dim=1),
+                           fir_same_iq(x, h, np.full(64, off)))
+
+
+def test_ring_exchange_across_cards_in_graphs_and_back_to_back(cuda):
+    """One rank a card (the handshake template): 20 eager calls issued
+    back to back with new inputs and no host sync, each bit-equal to the
+    plain version; then one graph a card holding that card's part, all
+    replayed together 100 times with new inputs, each replay bit-equal."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the cross-card ring needs two or more CUDA devices; "
+                    f"this machine has {n}")
+    from dl_ofdm_tpu_torch.parallel import halo
+    devs = [torch.device("cuda", i) for i in range(n)]
+    for i in range(n):
+        for j in (i - 1, i + 1):
+            if j % n != i and not halo.enable_peer_access(i, j % n):
+                pytest.skip(f"cuda:{i} cannot reach cuda:{j % n}")
+    gens = [torch.Generator(device=d).manual_seed(i)
+            for i, d in enumerate(devs)]
+    shards = [torch.randn(64, 560, 2, device=d, generator=g)
+              for d, g in zip(devs, gens)]
+    lt = [x[:, -6:, :] for x in shards]
+    rh = [x[:, :6, :] for x in shards]
+
+    def refill():
+        for x, g in zip(shards, gens):
+            x.normal_(generator=g)
+
+    before = halo.ring_exchange_kernel.launches
+    runs = []
+    for _ in range(20):
+        refill()
+        runs.append((halo.ring_exchange(lt, rh),
+                     halo.ring_exchange_ref(lt, rh)))
+    _sync_all(devs)
+    assert halo.ring_exchange_kernel.launches == before + 20 * n
+    for got, want in runs:
+        _assert_ring_equal(got, want)
+    recv = halo.ring_buffers(lt, rh)
+    graphs = []
+    for d in devs:
+        with torch.cuda.device(d):
+            # a capture stream of this card (torch's default one lives on
+            # the card that first captured)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(d)):
+                halo.ring_exchange_kernel(lt, rh, out=recv, device=d)
+            graphs.append(graph)
+    for _ in range(100):
+        refill()
+        for d, graph in zip(devs, graphs):
+            with torch.cuda.device(d):
+                graph.replay()
+        want = halo.ring_exchange_ref(lt, rh)
+        _sync_all(devs)
+        _assert_ring_equal(recv, want)

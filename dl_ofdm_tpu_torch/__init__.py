@@ -21,7 +21,12 @@ equalizer transfer-learning stage (`models/equalizers.py`,
 `csrc/fir_shift_accum.cu`; and the device mesh (`parallel/`): data
 parallelism over ranks of one process for training, the equalizer stage
 and the sweeps, and the sequence-parallel halo FIR, whose ring exchange
-runs on `csrc/ring_exchange.cu`.
+runs on `csrc/ring_exchange.cu`; the bf16 receiver (`compute_dtype`,
+through `complex_dense`'s bf16 mode); and the entry points: `cli.py`,
+`runner.py`, the checkpoints and resume payloads of `train/checkpoint.py`
+and `utils/` (`timing`, `observability`).  `utils/cache.py` (JAX's
+persistent compilation cache) has no counterpart: PyTorch runs eagerly,
+and `ops/cuda_build.py` builds each kernel once per source.
 """
 from __future__ import annotations
 

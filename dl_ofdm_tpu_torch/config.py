@@ -39,11 +39,17 @@ class OFDMConfig:
     compute_dtype: Optional[str] = None  # 'bfloat16': receiver GEMMs run on
                                          # bf16 activations (f32 params/
                                          # accumulation/logits) — halves HBM
-                                         # traffic on the memory-bound forward
+                                         # traffic on the memory-bound forward;
+                                         # 'float32' computes as None does
+                                         # (the JAX CLI's third choice) but
+                                         # keeps the fused route closed
 
     def __post_init__(self):
         if self.pilot not in ("lte", "scattered", "block", "comb"):
             raise ValueError(f"Unsupported pilot type {self.pilot!r}")
+        if self.compute_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(
+                f"Unsupported compute_dtype {self.compute_dtype!r}")
         if not 1 <= self.nbits <= 4:
             raise ValueError("nbits must be in 1..4")
 

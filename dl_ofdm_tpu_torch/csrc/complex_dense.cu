@@ -43,6 +43,16 @@
 //     and two of w feed 128 FMAs, so the FMA units and not shared memory
 //     set the pace.
 //
+// bf16 mode (`compute_dtype='bfloat16'`, the TPU kernel fed bf16 x, wr and
+// wi with float32 sums, complex_ops.py:108-115): a template flag rounds
+// every x, wr and wi value to bf16 (round to nearest even, back to float)
+// as it is read, the weight once as it is staged into shared memory, x in
+// registers as each k is loaded.  It reads the float32 tensors the model
+// holds, so no cast pass and no second copy of x exist; a product of two
+// bf16 values is exact in float32, so the result equals the plain
+// version's on rounded operands up to the order of the sums.  The FMA
+// loop, the K-chunk streaming and the launch plans are the float32 mode's.
+//
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes (dl_ofdm_tpu_torch/ops/cuda_build.py).  The launch plan (rows per
 // item, weight chunk, stage size, shared bytes, grid) is made by the
@@ -52,6 +62,7 @@
 // the plan fits the layout below.  The launch goes on the caller's stream;
 // the function returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -121,6 +132,12 @@ __device__ __forceinline__ void cmac(float (&accr)[8][2], float (&acci)[8][2],
   }
 }
 
+// v, or v rounded to bf16 (nearest even) and back in the bf16 mode
+template <bool BF16>
+__device__ __forceinline__ float rnd(float v) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 // 8 bytes from global to shared memory, asynchronously (cp.async, not the
 // bulk copy: any 8-byte aligned address)
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
@@ -132,7 +149,7 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 // at xt + rows[i] * stride, the chunk's weight at wv (float2 pairs of two
 // features, FT / 2 float4 a k); with K even a row's IQ pairs are read two k
 // at a time as float4
-template <bool KPAIR>
+template <bool KPAIR, bool BF16>
 __device__ __forceinline__ void mac_chunk(float (&accr)[8][2],
                                           float (&acci)[8][2],
                                           const float2* xt, int stride,
@@ -152,10 +169,12 @@ __device__ __forceinline__ void mac_chunk(float (&accr)[8][2],
       const float4 w0 = wv[kk * (FT / 2)], w1 = wv[(kk + 1) * (FT / 2)];
       float2 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].x, p[i].y);
+      for (int i = 0; i < 8; ++i)
+        a[i] = make_float2(rnd<BF16>(p[i].x), rnd<BF16>(p[i].y));
       cmac(accr, acci, a, w0);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = make_float2(p[i].z, p[i].w);
+      for (int i = 0; i < 8; ++i)
+        a[i] = make_float2(rnd<BF16>(p[i].z), rnd<BF16>(p[i].w));
       cmac(accr, acci, a, w1);
     }
   } else {
@@ -167,7 +186,8 @@ __device__ __forceinline__ void mac_chunk(float (&accr)[8][2],
     for (int kk = 0; kk < kn; ++kk) {
       float2 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xr[i][kk];
+      for (int i = 0; i < 8; ++i)
+        a[i] = make_float2(rnd<BF16>(xr[i][kk].x), rnd<BF16>(xr[i][kk].y));
       cmac(accr, acci, a, wv[kk * (FT / 2)]);
     }
   }
@@ -178,7 +198,8 @@ __device__ __forceinline__ void mac_chunk(float (&accr)[8][2],
 // contiguous bytes.  STREAMED (stage_elems < rt * K): one buffer of
 // [rt, kc] IQ pairs, refilled with each weight chunk, in place of the ring;
 // a template argument, so the ring's kernel is compiled without it.
-template <bool KPAIR, bool STREAMED>
+// BF16: every x, wr and wi value rounded to bf16 as it is read.
+template <bool KPAIR, bool STREAMED, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
                      const float* __restrict__ wr,    // [K, F]
@@ -256,8 +277,10 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
             }
           }
           float4* dst = reinterpret_cast<float4*>(ws + kk * FT + c);
-          dst[0] = make_float4(r.x, q.x, r.y, q.y);
-          dst[1] = make_float4(r.z, q.z, r.w, q.w);
+          dst[0] = make_float4(rnd<BF16>(r.x), rnd<BF16>(q.x),
+                               rnd<BF16>(r.y), rnd<BF16>(q.y));
+          dst[1] = make_float4(rnd<BF16>(r.z), rnd<BF16>(q.z),
+                               rnd<BF16>(r.w), rnd<BF16>(q.w));
         }
         if (STREAMED) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         __syncthreads();
@@ -265,10 +288,10 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
       }
       const float4* wv = reinterpret_cast<const float4*>(ws) + lane;
       if (STREAMED) {
-        mac_chunk<KPAIR>(accr, acci, xs, kc, rows, kn, wv);
+        mac_chunk<KPAIR, BF16>(accr, acci, xs, kc, rows, kn, wv);
       } else {
         if (k0 == 0) mbar_wait(smem_u32(bars + s), (j / NST) & 1);
-        mac_chunk<KPAIR>(accr, acci, xt + k0, K, rows, kn, wv);
+        mac_chunk<KPAIR, BF16>(accr, acci, xt + k0, K, rows, kn, wv);
       }
     }
     __syncthreads();                        // every read of stage s is done
@@ -297,24 +320,29 @@ complex_dense_kernel(const float2* __restrict__ x,    // [M, K]
 using KernelFn = void (*)(const float2*, const float*, const float*, float2*,
                          int, int, int, int, int, int, int, int);
 
+template <bool BF16>
 KernelFn kernel_for(int K, bool streamed) {
   if (streamed)
-    return K % 2 == 0 ? complex_dense_kernel<true, true>
-                      : complex_dense_kernel<false, true>;
-  return K % 2 == 0 ? complex_dense_kernel<true, false>
-                    : complex_dense_kernel<false, false>;
+    return K % 2 == 0 ? complex_dense_kernel<true, true, BF16>
+                      : complex_dense_kernel<false, true, BF16>;
+  return K % 2 == 0 ? complex_dense_kernel<true, false, BF16>
+                    : complex_dense_kernel<false, false, BF16>;
+}
+
+KernelFn kernel_for(int K, bool streamed, bool bf16) {
+  return bf16 ? kernel_for<true>(K, streamed) : kernel_for<false>(K, streamed);
 }
 
 // let the kernel for K (and mode) take SMEM_MAX shared bytes on the current
 // device
-cudaError_t allow_smem(int K, bool streamed) {
-  static unsigned long long done[4] = {0, 0, 0, 0};   // devices, by bit
+cudaError_t allow_smem(int K, bool streamed, bool bf16) {
+  static unsigned long long done[8] = {};   // devices, by bit
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  unsigned long long& d = done[K % 2 + 2 * streamed];
+  unsigned long long& d = done[K % 2 + 2 * streamed + 4 * bf16];
   if (d >> (dev & 63) & 1) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel_for(K, streamed),
+  err = cudaFuncSetAttribute(kernel_for(K, streamed, bf16),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_MAX);
   if (err == cudaSuccess) d |= 1ull << (dev & 63);
@@ -326,10 +354,10 @@ cudaError_t allow_smem(int K, bool streamed) {
 // y [M, F] = x [M, K] . (wr + i wi) [K, F] with the caller's plan: rt rows
 // per item, kc weight rows staged at once, stage_elems IQ pairs a ring
 // stage (or, below rt * K, the streamed mode's one [rt, kc] buffer), smem
-// shared bytes, grid blocks
+// shared bytes, grid blocks; bf16 != 0: operands rounded to bf16 as read
 extern "C" int complex_dense_f32(const void* x, const void* wr, const void* wi,
                                  void* y, int M, int K, int F, int rt, int kc,
-                                 int stage_elems, int smem, int grid,
+                                 int stage_elems, int smem, int grid, int bf16,
                                  void* stream) {
   // ring mode: NST stages of whole row tiles; streamed mode (a stage
   // smaller than a tile): one buffer of [rt, kc] IQ pairs, kc < K
@@ -342,10 +370,10 @@ extern "C" int complex_dense_f32(const void* x, const void* wr, const void* wi,
       stage_elems % 2 || smem < need || smem > SMEM_MAX ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(K, streamed);
+  const cudaError_t err = allow_smem(K, streamed, bf16);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int f_tiles = (F + FT - 1) / FT;
-  kernel_for(K, streamed)<<<grid, THREADS, smem,
+  kernel_for(K, streamed, bf16)<<<grid, THREADS, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(x), static_cast<const float*>(wr),
       static_cast<const float*>(wi), static_cast<float2*>(y), M, K, F, rt, kc,
@@ -353,17 +381,17 @@ extern "C" int complex_dense_f32(const void* x, const void* wr, const void* wi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks of the kernel for K (streamed or not), at `smem` shared bytes,
-// that one SM of the current device holds (out[0]), and the device's SMs
-// (out[1])
-extern "C" int complex_dense_f32_blocks_per_sm(int K, int streamed, int smem,
-                                               int* out) {
+// blocks of the kernel for K (streamed or not, bf16 mode or not), at
+// `smem` shared bytes, that one SM of the current device holds (out[0]),
+// and the device's SMs (out[1])
+extern "C" int complex_dense_f32_blocks_per_sm(int K, int streamed, int bf16,
+                                               int smem, int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = allow_smem(K, streamed);
+  if (err == cudaSuccess) err = allow_smem(K, streamed, bf16);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, kernel_for(K, streamed), THREADS, smem);
+        out, kernel_for(K, streamed, bf16), THREADS, smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount,
                                  dev);

@@ -70,12 +70,15 @@ class SingleGraphEqualizedRx(nn.Module):
 
 
 class EqualizedReceiver(nn.Module):
-    """input IQ waveform -> (logits, fft_out, equalized, snr_db, chest)."""
+    """input IQ waveform -> (logits, fft_out, equalized, snr_db, chest).
+    `compute_dtype` goes to the grafted DCCN receiver
+    (`dl_ofdm_tpu/models/receiver.py:90,102`)."""
 
     def __init__(self, nbits: int, nfft: int, cp_len: int, nfilter: int,
                  frame_size: int, nsymbol: int, pilot_size: int,
                  pilot_carriers, keep_cp: bool = True,
-                 recombine: str = "true", eq_spec: EqSpec = EqSpec()):
+                 recombine: str = "true", eq_spec: EqSpec = EqSpec(),
+                 compute_dtype: str | None = None):
         super().__init__()
         self.Equalizer = Equalizer(
             nfft=nfft, cp_len=cp_len, nsymbol=nsymbol, pilot_size=pilot_size,
@@ -83,7 +86,7 @@ class EqualizedReceiver(nn.Module):
         self.receiver = DCCNReceiver(
             nbits=nbits, nfft=nfft, cp_len=cp_len, nfilter=nfilter,
             frame_size=frame_size, nsymbol=nsymbol, keep_cp=keep_cp,
-            recombine=recombine)
+            recombine=recombine, compute_dtype=compute_dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         self.Equalizer.reset_parameters(generator)

@@ -17,6 +17,13 @@ K -> F on the second-to-last axis.  Layer modes:
                 (`complex.py:199-255`): one weight `w`, one bias `b`;
   * 'streams' — independent real maps of re and im (`complex.py:258-356`).
 
+`ComplexDense(compute_dtype='bfloat16')` feeds its products bf16 operands
+with float32 sums and output, as JAX's (`complex_ops.py:108-115`): the
+'exact' 'true' layer passes the flag to the kernel; 'exact' 'reference'
+runs `torch.matmul` on bf16-rounded operands (exact products, float32
+sums) and rounds each product's gradients to bf16, as the `astype` VJP
+does; 'vector' and 'streams' ignore it, as JAX's do (`:155-170`).
+
 Parameters keep the flax names and layouts, so
 `train.checkpoint.params_from_flax` maps a flax tree onto `state_dict()`
 keys one to one: dense weights [K, F] (vector [2K, 2F]), convolution
@@ -34,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dl_ofdm_tpu_torch.ops.pallas_kernels import complex_dense
+from dl_ofdm_tpu_torch.ops.pallas_kernels import (bf16_round, complex_dense,
+                                                  is_bf16)
 
 MODES = ("exact", "vector", "streams")
 
@@ -110,14 +118,39 @@ class _ComplexLayer(nn.Module):
         return yr + self.br, yi + self.bi
 
 
+class _Bf16Round(torch.autograd.Function):
+    """`bf16_round` whose gradient is rounded to bf16 too: a float32 value
+    cast to bf16 for one product, with the cast's VJP."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return bf16_round(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bf16_round(g)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """JAX's `matmul(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=float32)` in float32: operands rounded to bf16
+    (exact products, float32 sums), each operand's gradient rounded to
+    bf16."""
+    return torch.matmul(_Bf16Round.apply(a), _Bf16Round.apply(b))
+
+
 class ComplexDense(_ComplexLayer):
     """[..., K, 2] -> [..., F, 2].  Parameters: wr, wi [K, F] with br, bi
     [F] ('exact' 'true', 'streams') or b [F] ('exact' 'reference');
-    w [2K, 2F] and b [2F] ('vector')."""
+    w [2K, 2F] and b [2F] ('vector').  `compute_dtype`: None, 'float32'
+    (the same) or 'bfloat16' (see the module note)."""
 
     def __init__(self, in_features: int, features: int, mode: str = "exact",
-                 recombine: str = "true", use_bias: bool = True):
+                 recombine: str = "true", use_bias: bool = True,
+                 compute_dtype: str | None = None):
         super().__init__()
+        self.bf16 = is_bf16(compute_dtype)
+        self.compute_dtype = compute_dtype
         self._make(mode, recombine, use_bias, (in_features, features),
                    features)
 
@@ -125,11 +158,13 @@ class ComplexDense(_ComplexLayer):
         if x.shape[-1] != 2:
             raise ValueError("ComplexDense expects IQ-last input [..., K, 2]")
         if self.mode == "exact" and self.recombine == "true":
-            y = complex_dense(x, self.wr, self.wi)
+            y = complex_dense(x, self.wr, self.wi, self.compute_dtype)
             if self.use_bias:
                 y = y + torch.stack([self.br, self.bi], dim=-1)
             return y
-        yr, yi = self._recombine(torch.matmul, x[..., 0], x[..., 1])
+        mm = (bf16_matmul if self.bf16 and self.mode == "exact"
+              else torch.matmul)
+        yr, yi = self._recombine(mm, x[..., 0], x[..., 1])
         return torch.stack([yr, yi], dim=-1)
 
 

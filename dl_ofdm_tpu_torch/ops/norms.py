@@ -51,6 +51,16 @@ def batch_norm_ref(x: torch.Tensor, eps: float = 1e-9,
     return normalize(x, mean, var, eps)
 
 
+# 0.2 rounded to bf16, the slope `jax.nn.leaky_relu` multiplies a bf16
+# array by (its weakly typed `negative_slope * x` takes the array's dtype)
+SLOPE_BF16 = 0.2001953125
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """TF-default leaky relu: slope 0.2 (torch's default is 0.01)."""
+    """TF-default leaky relu: slope 0.2 (torch's default is 0.01).  On a
+    bf16 tensor, `where(x >= 0, x, bf16(0.2) * x)` with the product rounded
+    once to bf16, as JAX computes it (the product of two bf16 values is
+    exact in float32)."""
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * SLOPE_BF16)
     return F.leaky_relu(x, negative_slope=0.2)

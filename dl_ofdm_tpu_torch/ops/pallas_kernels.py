@@ -18,6 +18,14 @@ DCCN's `fft_like` layer and of the equalizer's `ToFreq`, `CorrT` and
     pass of `_cdense_bwd` (`pallas_kernels.py:108-119`) as plain matmuls,
     as in JAX.
 
+Each takes `compute_dtype`: None (float32 products) or 'bfloat16', the
+TPU kernel fed bf16 operands with float32 sums (`complex_ops.py:108-115`):
+x, wr and wi are rounded to bf16 (`bf16_round`) and the products summed
+in float32 (the kernel rounds as it loads, the plain version rounds
+first), and the backward pass rounds dx, dwr and dwi to bf16 as
+`_cdense_bwd` casts its cotangents to the primal dtype
+(`pallas_kernels.py:116-119`).
+
 `fir_shift_accum`, the channel's per-row complex FIR over pre-aligned rows
 out[b, n] = sum_k h[b, k] xa[b, n + F - 1 - k] (`pallas_kernels.py:141-188`),
 which `channel.fir.fir_same_iq` runs on every static-fading frame:
@@ -46,9 +54,30 @@ import torch
 from dl_ofdm_tpu_torch.ops import cuda_build
 
 
+COMPUTE_DTYPES = (None, "bfloat16", "float32")
+
+
+def is_bf16(compute_dtype: str | None) -> bool:
+    """Whether `compute_dtype` asks for bf16 operands; raises on a dtype
+    the port does not know ('float32' computes as None does)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not one of "
+                         f"{COMPUTE_DTYPES}")
+    return compute_dtype == "bfloat16"
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """`t` rounded to bf16 (nearest even) and back to its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def complex_dense_ref(x_iq: torch.Tensor, wr: torch.Tensor,
-                      wi: torch.Tensor) -> torch.Tensor:
-    """[..., K, 2] x ([K, F], [K, F]) -> [..., F, 2], plain PyTorch."""
+                      wi: torch.Tensor,
+                      compute_dtype: str | None = None) -> torch.Tensor:
+    """[..., K, 2] x ([K, F], [K, F]) -> [..., F, 2], plain PyTorch; with
+    'bfloat16' the operands are rounded to bf16 first."""
+    if is_bf16(compute_dtype):
+        x_iq, wr, wi = bf16_round(x_iq), bf16_round(wr), bf16_round(wi)
     xr, xi = x_iq[..., 0], x_iq[..., 1]
     yr = torch.matmul(xr, wr) - torch.matmul(xi, wi)
     yi = torch.matmul(xr, wi) + torch.matmul(xi, wr)
@@ -58,7 +87,7 @@ def complex_dense_ref(x_iq: torch.Tensor, wr: torch.Tensor,
 @functools.cache
 def _complex_dense_fn():
     fn = cuda_build.load("complex_dense").complex_dense_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -121,35 +150,40 @@ def complex_dense_plan(m: int, k: int, f: int, sms: int = 132,
 
 
 @functools.cache
-def _cd_occupancy(device: int, k_odd: bool, streamed: bool,
+def _cd_occupancy(device: int, k_odd: bool, streamed: bool, bf16: bool,
                   smem: int) -> tuple[int, int]:
-    """(SMs, blocks a SM holds) of the kernel for K's parity and mode at
+    """(SMs, blocks a SM holds) of the kernel for K's parity and modes at
     `smem` shared bytes on CUDA device `device`."""
     fn = cuda_build.load("complex_dense").complex_dense_f32_blocks_per_sm
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        err = fn(int(k_odd), int(streamed), smem, out)
+        err = fn(int(k_odd), int(streamed), int(bf16), smem, out)
     if err != 0 or out[0] < 1:
         raise RuntimeError(f"complex_dense occupancy query failed: CUDA "
                            f"error {err}, {out[0]} blocks a SM")
     return out[1], out[0]
 
 
-def complex_dense_launch_plan(m: int, k: int, f: int,
-                              device: int) -> ComplexDensePlan:
+def complex_dense_launch_plan(m: int, k: int, f: int, device: int,
+                              bf16: bool = False) -> ComplexDensePlan:
     """The plan `complex_dense_kernel` launches for x [m, k, 2] and w
-    [k, f] (m, k, f > 0) on CUDA device `device`."""
+    [k, f] (m, k, f > 0) on CUDA device `device`, in the bf16 mode or
+    not."""
     rt, _, stage, smem = _cd_stage(k)
     return complex_dense_plan(m, k, f, *_cd_occupancy(
-        device, k % 2 == 1, stage < rt * k, smem))
+        device, k % 2 == 1, stage < rt * k, bf16, smem))
 
 
 def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
-                         wi: torch.Tensor) -> torch.Tensor:
+                         wi: torch.Tensor,
+                         compute_dtype: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x [M, K, 2], wr/wi [K, F] -> y [M, F, 2], all
-    contiguous float32 on one CUDA device.  Raises on anything else."""
+    contiguous float32 on one CUDA device; with 'bfloat16' the kernel
+    rounds every operand to bf16 as it reads it.  Raises on anything
+    else."""
+    bf16 = is_bf16(compute_dtype)
     if not (x_iq.is_cuda and wr.device == x_iq.device
             and wi.device == x_iq.device):
         raise ValueError("complex_dense_kernel: x, wr and wi must be on one "
@@ -178,57 +212,70 @@ def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
     if k == 0:              # an empty sum
         return y.zero_()
     dev = x_iq.device.index
-    plan = complex_dense_launch_plan(m, k, f, dev)
+    plan = complex_dense_launch_plan(m, k, f, dev, bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _complex_dense_fn()(x_iq.data_ptr(), wr.data_ptr(),
                                   wi.data_ptr(), y.data_ptr(), m, k, f,
                                   plan.rows_per_tile, plan.k_chunk,
                                   plan.stage_elems, plan.smem_bytes,
-                                  plan.grid, stream)
+                                  plan.grid, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"complex_dense kernel launch failed: CUDA error "
                            f"{err}")
-    complex_dense_kernel.launches += 1
+    if bf16:
+        complex_dense_kernel.launches_bf16 += 1
+    else:
+        complex_dense_kernel.launches += 1
     return y
 
 
+# launches of the float32 mode and of the bf16 mode
 complex_dense_kernel.launches = 0
+complex_dense_kernel.launches_bf16 = 0
 
 
 class ComplexDenseFn(torch.autograd.Function):
     """y = x @ (wr + i wi) on [M, K, 2]; the backward pass is `_cdense_bwd`
-    (`dl_ofdm_tpu/ops/pallas_kernels.py:108-119`), four real-pair products."""
+    (`dl_ofdm_tpu/ops/pallas_kernels.py:108-119`), four real-pair products
+    (on the bf16-rounded operands in the bf16 mode, each result rounded to
+    bf16)."""
 
     @staticmethod
-    def forward(ctx, x_iq, wr, wi):
+    def forward(ctx, x_iq, wr, wi, compute_dtype):
         ctx.save_for_backward(x_iq, wr, wi)
+        ctx.bf16 = is_bf16(compute_dtype)
         if x_iq.device.type == "cpu":
-            return complex_dense_ref(x_iq, wr, wi)
-        return complex_dense_kernel(x_iq, wr, wi)
+            return complex_dense_ref(x_iq, wr, wi, compute_dtype)
+        return complex_dense_kernel(x_iq, wr, wi, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x_iq, wr, wi = ctx.saved_tensors
+        if ctx.bf16:
+            x_iq, wr, wi = bf16_round(x_iq), bf16_round(wr), bf16_round(wi)
         xr, xi = x_iq[..., 0], x_iq[..., 1]
         gr, gi = g[..., 0], g[..., 1]
         dx = torch.stack([gr @ wr.T + gi @ wi.T, -gr @ wi.T + gi @ wr.T],
                          dim=-1)
         dwr = xr.T @ gr + xi.T @ gi
         dwi = xr.T @ gi - xi.T @ gr
-        return dx, dwr, dwi
+        if ctx.bf16:
+            dx, dwr, dwi = bf16_round(dx), bf16_round(dwr), bf16_round(dwi)
+        return dx, dwr, dwi, None
 
 
-def complex_dense(x_iq: torch.Tensor, wr: torch.Tensor,
-                  wi: torch.Tensor) -> torch.Tensor:
+def complex_dense(x_iq: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                  compute_dtype: str | None = None) -> torch.Tensor:
     """[..., K, 2] x ([K, F], [K, F]) -> [..., F, 2], differentiable: the
-    counterpart of JAX's `complex_dense_iq`."""
+    counterpart of JAX's `complex_dense_iq` (fed bf16 operands where
+    `compute_dtype` is 'bfloat16')."""
     lead = x_iq.shape[:-2]
     k = x_iq.shape[-2]
     x = x_iq.reshape(-1, k, 2).contiguous()
     if x.is_cuda and x.data_ptr() % 16:    # an offset view: the kernel's
         x = x.clone()                      # bulk copies need 16 bytes
-    y = ComplexDenseFn.apply(x, wr, wi)
+    y = ComplexDenseFn.apply(x, wr, wi, compute_dtype)
     return y.reshape(*lead, wr.shape[1], 2)
 
 

@@ -22,12 +22,11 @@ channel (`fused_synthesize(..., want_h=True)`; its plain version on the
 CPU).  With `mesh=` (dp only, `parallel/mesh.py`) the step is data
 parallel over the ranks on the plain data plane (`Trainer._synth_mesh`
 with the true channel, `equalizer_loop.py:159-160`); a mesh with tp > 1
-raises (ROADMAP.md Queue A item 12).  Not ported here: resume payloads
-(`fit(ckpt_dir=)`, ROADMAP.md Queue A item 5).
+raises (ROADMAP.md Queue A item 12).  `fit(ckpt_dir=)` resumes as
+`Trainer.fit` does, its signature covering `freeze_rx` and
+`fused_curriculum` (`equalizer_loop.py:192-236`).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -39,7 +38,8 @@ from dl_ofdm_tpu_torch.ops.fused_synth import fused_synthesize
 from dl_ofdm_tpu_torch.ops.norms import frame_layer_norm
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.curriculum import modulation_offset_db, sample_snr
-from dl_ofdm_tpu_torch.train.loop import Trainer, TrainState
+from dl_ofdm_tpu_torch.train.loop import (Trainer, TrainState,
+                                         deterministic_cudnn)
 from dl_ofdm_tpu_torch.train.transfer import graft_pretrained, scope_mask
 
 
@@ -63,7 +63,7 @@ class EqualizerTrainer(Trainer):
             nfilter=cfg.nfilter, frame_size=plan.frame_size,
             nsymbol=plan.nsymbol, pilot_size=plan.pilot_size,
             pilot_carriers=tuple(plan.pilot_carriers), keep_cp=cfg.cp,
-            eq_spec=spec)
+            eq_spec=spec, compute_dtype=cfg.compute_dtype)
         super().__init__(cfg, tc, channel=channel, mobile=mobile, mix=mix,
                          model=model, device=device, mesh=mesh)
         self.pretrained_rx = pretrained_rx
@@ -193,11 +193,14 @@ class EqualizerTrainer(Trainer):
             ckpt_dir: str | None = None, ckpt_every: int = 50):
         """Epochs of `train_step_curriculum`, an `eval_step` of 1024 frames
         at curriculum SNRs after each, best-params tracking and early stop
-        (`equalizer_loop.py:192-236`).  `init_state` warm-starts."""
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "resume payloads (ckpt_dir) are not ported yet: ROADMAP.md "
-                "Queue A item 5")
+        (`equalizer_loop.py:192-236`).  `init_state` warm-starts;
+        `ckpt_dir` makes the run resumable (see `Trainer.fit`)."""
+        with deterministic_cudnn():
+            return self._fit_curriculum(seed, max_epochs, log_fn, init_state,
+                                        ckpt_dir, ckpt_every)
+
+    def _fit_curriculum(self, seed, max_epochs, log_fn, init_state, ckpt_dir,
+                        ckpt_every):
         tc = self.tc
         seed = tc.seed if seed is None else seed
         max_epochs = tc.max_epoch_num if max_epochs is None else max_epochs
@@ -209,9 +212,12 @@ class EqualizerTrainer(Trainer):
             state = self.init_state(gen)
         steps = max(1, tc.frames_per_epoch(self.cfg.nsymbol)
                     // self.batch_frames)
-        best_loss, best_epoch, best_params = math.inf, 0, state.params
+        state, start, best_loss, best_epoch, best_params, resumed = \
+            self._maybe_resume(ckpt_dir, state, gen)
+        if resumed:
+            log_fn(f"resumed from {ckpt_dir}/resume at epoch {start}")
         history = []
-        for epoch in range(max_epochs):
+        for epoch in range(start, max_epochs):
             losses = []
             for _ in range(steps):
                 state, aux = self.train_step_curriculum(state, gen)
@@ -226,6 +232,9 @@ class EqualizerTrainer(Trainer):
             if epoch_loss < best_loss:
                 best_loss, best_epoch = epoch_loss, epoch
                 best_params = state.params
+            if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
+                self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
+                                  best_epoch, best_params)
             if epoch - tc.early_stop > best_epoch:
                 break
         state = TrainState(best_params, state.opt_state, state.step,

@@ -24,6 +24,18 @@ Parameters live in a `TrainState` as a dict keyed as the model's
 `state_dict()`; the model module only supplies the forward function
 (`torch.func.functional_call`).
 
+`OFDMConfig.compute_dtype` reaches the `DCCNReceiver` (bf16 GEMM inputs,
+`models/dccn.py`); as in JAX (`loop.py:157-163`) only a model without it
+takes the fused route, so a bf16 trainer on a card takes the autograd
+route, through `complex_dense`'s bf16 mode.
+
+`fit(ckpt_dir=)` writes a resume payload every `ckpt_every` epochs and
+resumes from it (`loop.py:353-397`, `train/checkpoint.py`): the state,
+the epoch loop's generator (the only source of its draws: the synth
+kernel draws its seed words from it, and on a mesh the rank generators
+are drawn from it at every step), the cursors and the batch size, so
+the resumed trajectory is bit-identical to an uninterrupted one.
+
 With `mesh=` (`parallel/mesh.py`, dp only) the step is data parallel, as
 JAX's mesh step (`loop.py:96-106`, `:187-229`): the plain data plane and
 the autograd route on every rank, each rank's shard drawn on its device
@@ -32,8 +44,11 @@ from its own generator and normalized with its own moments
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import math
+import os
 
 import numpy as np
 import torch
@@ -54,7 +69,9 @@ from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
 from dl_ofdm_tpu_torch.parallel.mesh import (check_dp_only, module_replicas,
                                              rank_generators, shard_params)
+from dl_ofdm_tpu_torch.train import checkpoint as ckpt
 from dl_ofdm_tpu_torch.train import metrics as M
+from dl_ofdm_tpu_torch.utils.observability import dump_constellation
 
 
 @dataclasses.dataclass
@@ -122,6 +139,21 @@ def make_optimizer(tc: TrainConfig) -> Adam:
     return Adam(tc)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, its setting
+    restored after: the algorithms it picks by default may sum a
+    convolution's weight gradient with atomics in an order that varies
+    from run to run (the equalizers' convolutions), and a resumed `fit`
+    has to repeat the uninterrupted one bit for bit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def first_output(out):
     """The logits: every receiver returns them first (`loop.py:258-261`)."""
     return out[0] if isinstance(out, tuple) else out
@@ -149,10 +181,6 @@ class Trainer:
                  mobile: bool = False, mix: bool | None = None,
                  model: torch.nn.Module | None = None,
                  device: str | torch.device | None = None, mesh=None):
-        if cfg.compute_dtype is not None:
-            raise NotImplementedError(
-                "OFDMConfig.compute_dtype (bf16 receiver GEMMs) is not "
-                "ported yet")
         self.mesh = mesh
         if mesh is not None:
             check_dp_only(mesh)
@@ -168,7 +196,8 @@ class Trainer:
             model = DCCNReceiver(
                 nbits=cfg.nbits, nfft=cfg.nfft, cp_len=self.plan.cp_len,
                 nfilter=cfg.nfilter, frame_size=self.plan.frame_size,
-                nsymbol=cfg.nsymbol, keep_cp=cfg.cp)
+                nsymbol=cfg.nsymbol, keep_cp=cfg.cp,
+                compute_dtype=cfg.compute_dtype)
         self.model = model.to(self.device)
         self.channel = RayleighChannel(
             channel=channel, nfft=cfg.nfft,
@@ -203,6 +232,7 @@ class Trainer:
         if (self._fused_synth_spec is not None
                 and type(self.model) is DCCNReceiver
                 and self.model.fft_like.recombine == "true"
+                and self.model.compute_dtype is None
                 and self.model.keep_cp and not tc.double_softmax):
             self._fused_model_spec = ModelSpec(
                 nsymbol=self.plan.nsymbol, sps=self.plan.samples_per_symbol,
@@ -481,6 +511,52 @@ class Trainer:
         return max(self.batch_frames,
                    snapped // 2 if snapped > target else snapped)
 
+    # -- crash-resume plumbing (shared with EqualizerTrainer.fit) -------------
+    def _config_sig(self) -> str:
+        """Hash of everything that shapes the trajectory (`loop.py:353-364`),
+        embedded in resume payloads so that a run with other settings
+        refuses a stale payload."""
+        ch = self.channel
+        parts = (type(self).__name__, repr(self.cfg), repr(self.tc),
+                 ch.channel, ch.mobile, ch.mix,
+                 getattr(self, "freeze_rx", None),
+                 getattr(self, "fused_curriculum", None))
+        return hashlib.sha1(repr(parts).encode()).hexdigest()
+
+    def _maybe_resume(self, ckpt_dir, state: TrainState,
+                      generator: torch.Generator):
+        """Restore `<ckpt_dir>/resume` if it exists (`loop.py:366-388`):
+        sets `generator`'s state and the batch size, and returns (state,
+        start epoch, best loss, best epoch, best params, resumed)."""
+        rp = None if ckpt_dir is None else os.path.join(ckpt_dir, "resume")
+        if rp is None or not ckpt.has_resume(rp):
+            return state, 0, math.inf, 0, state.params, False
+        payload = ckpt.restore_resume(rp, state)
+        saved = payload["config_sig"]
+        if saved is not None and saved != self._config_sig():
+            raise RuntimeError(
+                f"resume payload at {rp} was written by a run with a "
+                f"different configuration (sig {saved[:12]} != "
+                f"{self._config_sig()[:12]}); delete the stale payload or "
+                f"use a fresh ckpt_dir")
+        generator.set_state(payload["generator_state"])
+        cur = payload["cursor"]
+        self.batch_frames = cur["batch_frames"]
+        st = payload["state"]
+        state = TrainState(st.params, st.opt_state, st.step,
+                           self._replicate(st.params))
+        return (state, cur["epoch"] + 1, cur["best_loss"],
+                cur["best_epoch"], payload["best_params"], True)
+
+    def _save_resume(self, ckpt_dir, state, generator, epoch, best_loss,
+                     best_epoch, best_params):
+        ckpt.save_resume(os.path.join(ckpt_dir, "resume"), state=state,
+                         generator=generator, epoch=epoch,
+                         best_loss=best_loss, best_epoch=best_epoch,
+                         best_params=best_params,
+                         batch_frames=self.batch_frames,
+                         config_sig=self._config_sig())
+
     # -- epochs (the reference's epoch/early-stop protocol) -------------------
     def fit(self, seed: int | None = None, max_epochs: int | None = None,
             log_fn=print, grow_batch: bool = True,
@@ -490,24 +566,35 @@ class Trainer:
         """Epochs of `train_step`, an `eval_step` of 1024 frames after each,
         batch growth, best-params tracking and early stop
         (`loop.py:399-468`).  Returns (state with the best params,
-        {"best_epoch", "best_loss", "history"})."""
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "resume payloads (ckpt_dir) are not ported yet: ROADMAP.md "
-                "Queue A item 5")
-        if dump_constellations:
-            raise NotImplementedError(
-                "dump_constellations is not ported yet: ROADMAP.md Queue A "
-                "item 11 (utils/observability)")
+        {"best_epoch", "best_loss", "history"}).
+
+        `init_state` warm-starts from a restored checkpoint.  `ckpt_dir`
+        makes the run resumable: a payload is written to
+        `<ckpt_dir>/resume` every `ckpt_every` epochs and picked up by the
+        next `fit` with the same `ckpt_dir`, which then goes on exactly as
+        the uninterrupted run would (cuDNN's deterministic algorithms for
+        the length of the fit, `deterministic_cudnn`).
+        `dump_constellations` writes each epoch's validation IQ samples
+        (`utils.observability`) to `tc.save_dir`."""
+        with deterministic_cudnn():
+            return self._fit(seed, max_epochs, log_fn, grow_batch,
+                             dump_constellations, init_state, ckpt_dir,
+                             ckpt_every)
+
+    def _fit(self, seed, max_epochs, log_fn, grow_batch, dump_constellations,
+             init_state, ckpt_dir, ckpt_every):
         tc = self.tc
         seed = tc.seed if seed is None else seed
         max_epochs = tc.max_epoch_num if max_epochs is None else max_epochs
         gen = torch.Generator(device=self.device).manual_seed(seed)
         state = self.init_state(gen) if init_state is None else init_state
-        best_loss, best_epoch, best_params = math.inf, 0, state.params
+        state, start, best_loss, best_epoch, best_params, resumed = \
+            self._maybe_resume(ckpt_dir, state, gen)
+        if resumed:
+            log_fn(f"resumed from {ckpt_dir}/resume at epoch {start}")
         sel = "total_loss" if tc.best_metric == "total" else "ce"
         history = []
-        for epoch in range(max_epochs):
+        for epoch in range(start, max_epochs):
             steps = max(1, tc.frames_per_epoch(self.cfg.nsymbol)
                         // self.batch_frames)
             snr = torch.full((self.batch_frames,), tc.snr,
@@ -524,6 +611,9 @@ class Trainer:
             if grow_batch:
                 self.batch_frames = self._round_to_dp(
                     self._ideal_batch_frames(last_ber))
+            if dump_constellations:
+                dump_constellation(tc.token, val["iq_tx"], val["iq_rx"],
+                                   out_dir=tc.save_dir)
             history.append({"epoch": epoch, "train_loss": epoch_loss,
                             "val_ber": float(val["ber"]),
                             "val_loss": float(val["ce"])})
@@ -532,6 +622,9 @@ class Trainer:
             if epoch_loss < best_loss:
                 best_loss, best_epoch = epoch_loss, epoch
                 best_params = state.params
+            if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
+                self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
+                                  best_epoch, best_params)
             if epoch - tc.early_stop > best_epoch:
                 break
         state = TrainState(best_params, state.opt_state, state.step,

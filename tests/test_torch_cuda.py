@@ -88,6 +88,86 @@ def test_complex_dense_kernel_at_the_largest_k(cuda, k):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("m,k,f", [(992 * 7, 640, 512), (73 * 7, 640, 512),
+                                   (1001, 77, 50), (1, 1, 1), (37, 5000, 70),
+                                   (1968 * 7, 80, 64)])
+def test_complex_dense_bf16_mode_matches_plain_version(cuda, m, k, f):
+    """The bf16 mode (operands rounded to bf16 as the kernel reads them,
+    float32 sums) against the plain version on rounded operands, at the
+    nfft-512 arm's sweep and training shapes, ragged, streamed (K past
+    2,642) and the serving shape; one bf16 launch counted, none of the
+    float32 mode's."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, 2, device=cuda, generator=g)
+    wr, wi = (torch.randn(k, f, device=cuda, generator=g) / k ** 0.5
+              for _ in range(2))
+    before = (tpk.complex_dense_kernel.launches,
+              tpk.complex_dense_kernel.launches_bf16)
+    y = tpk.complex_dense_kernel(x, wr, wi, "bfloat16")
+    torch.cuda.synchronize()
+    assert (tpk.complex_dense_kernel.launches,
+            tpk.complex_dense_kernel.launches_bf16) == (before[0],
+                                                        before[1] + 1)
+    torch.testing.assert_close(
+        y, tpk.complex_dense_ref(x, wr, wi, "bfloat16"), atol=1e-5,
+        rtol=1e-5)
+    if k > 1:
+        assert (y - tpk.complex_dense_ref(x, wr, wi)).abs().max() > 1e-4
+
+
+def test_complex_dense_bf16_autograd_on_card(cuda):
+    """The autograd op in the bf16 mode on the card: the kernel's forward,
+    gradients rounded to bf16 within one bf16 ulp of float64 products of
+    the rounded operands."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    m, k, f = 511, 640, 512
+    x = torch.randn(m, k, 2, device=cuda, generator=g)
+    wr, wi = (torch.randn(k, f, device=cuda, generator=g) / k ** 0.5
+              for _ in range(2))
+    gy = torch.randn(m, f, 2, device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (x, wr, wi)]
+    n = tpk.complex_dense_kernel.launches_bf16
+    tpk.complex_dense(*leaves, "bfloat16").backward(gy)
+    assert tpk.complex_dense_kernel.launches_bf16 == n + 1
+    xb, rb, ib = (tpk.bf16_round(t).double() for t in (x, wr, wi))
+    gd = gy.double()
+    want = (torch.stack([gd[..., 0] @ rb.T + gd[..., 1] @ ib.T,
+                         -gd[..., 0] @ ib.T + gd[..., 1] @ rb.T], -1),
+            xb[..., 0].T @ gd[..., 0] + xb[..., 1].T @ gd[..., 1],
+            xb[..., 0].T @ gd[..., 1] - xb[..., 1].T @ gd[..., 0])
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, tpk.bf16_round(t.grad))
+        # one bf16 ulp (2^-7 of the value at most); near zero the float32
+        # sum's own error, 1e-5 of the largest entry
+        torch.testing.assert_close(t.grad, w.float(), rtol=2 ** -7,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_dccn_bf16_on_card_matches_cpu(cuda):
+    """`DCCNReceiver(compute_dtype='bfloat16')` on the card (the kernel's
+    bf16 mode, bf16 cuBLAS Dense layers) against the same model on the
+    CPU: the same bf16 roundings in other sum orders, so logits within a
+    few bf16 ulps (1e-2 of their largest magnitude) and 99.9 % of the bit
+    decisions equal."""
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    torch.manual_seed(0)
+    rx = DCCNReceiver(nbits=2, nfft=64, cp_len=16, nfilter=64,
+                      frame_size=320, compute_dtype="bfloat16")
+    x = torch.randn(64, 7, 80, 2)
+    with torch.no_grad():
+        want, fw = rx(x)
+        n = tpk.complex_dense_kernel.launches_bf16
+        got, fg = rx.to(cuda)(x.to(cuda))
+        torch.cuda.synchronize()
+    assert tpk.complex_dense_kernel.launches_bf16 == n + 1
+    torch.testing.assert_close(fg.cpu(), fw, atol=1e-5, rtol=1e-5)
+    got = got.cpu()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-2 * float(want.abs().max()))
+    agree = ((got[..., 1] > got[..., 0]) == (want[..., 1] > want[..., 0]))
+    assert agree.float().mean() >= 0.999
+
+
 @pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
 def test_library_is_built_under_build_dir(cuda, name):
     cuda_build.load(name)

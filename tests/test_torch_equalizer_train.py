@@ -244,11 +244,11 @@ def test_sample_snr_matches_the_pmf_in_distribution():
             jcur.modulation_offset_db(nbits)
 
 
-def test_equalizer_trainer_steps_keep_the_receiver_frozen():
+def test_equalizer_trainer_steps_keep_the_receiver_frozen(tmp_path):
     base = tckpt.params_from_flax(tckpt.load_params_npz(BASE))
     tt = EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(
-        snr=10.0, batch_size=28, opt=12), channel="mixRayleigh",
-        pretrained_rx=base, device="cpu")
+        snr=10.0, batch_size=28, msg_length=28, opt=12),
+        channel="mixRayleigh", pretrained_rx=base, device="cpu")
     assert tt._fused_model_spec is None and not tt.fused_curriculum
     g = torch.Generator().manual_seed(0)
     state = tt.init_state(g)
@@ -264,8 +264,11 @@ def test_equalizer_trainer_steps_keep_the_receiver_frozen():
             assert torch.equal(v, base[k[len("receiver."):]]), k
         else:
             assert not torch.equal(v, eq0[k]), k
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tt.fit(max_epochs=1, ckpt_dir="x")
+    # resume payloads (ROADMAP.md Queue A item 5), which raised before
+    # they were ported
+    tt.fit(max_epochs=1, ckpt_dir=str(tmp_path), ckpt_every=1,
+           log_fn=lambda *a: None)
+    assert os.path.isfile(tmp_path / "resume" / "state.npz")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(),
                          mesh=make_mesh(["cpu"] * 2, dp=1, tp=2),

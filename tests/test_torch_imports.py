@@ -41,10 +41,12 @@ def test_port_files_found():
     "ops/complex_ops.py", "ops/norms.py", "ops/pallas_kernels.py",
     "channel/fir.py", "models/equalizers.py", "models/receiver.py",
     "train/transfer.py", "train/curriculum.py", "train/equalizer_loop.py",
-    "eval/sweep.py"])
+    "eval/sweep.py", "cli.py", "runner.py", "train/checkpoint.py",
+    "utils/__init__.py", "utils/timing.py", "utils/observability.py"])
 def test_equalizer_stage_modules_are_scanned(module):
-    """The equalizer stage's modules are among the files the import scan
-    reads, and import without JAX's modules being reached."""
+    """The equalizer stage's modules and the entry points (CLI, runner,
+    checkpoints, utils) are among the files the import scan reads, and
+    import without JAX's modules being reached."""
     path = os.path.join(ROOT, "dl_ofdm_tpu_torch", module)
     assert path in PORT_FILES
     import importlib

@@ -1,6 +1,8 @@
 """The port's training slice against the JAX package: the DCCN's init,
 the metrics, the optimizer, two fused-route steps end to end on the same
 random words, the autograd route, `fit`, and the params archive."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,19 +210,24 @@ def test_routes_agree_on_cpu():
     assert torch.equal(a_f["conf"], a_a["conf"])
 
 
-def test_fit_runs_and_routes_default_to_autograd_on_cpu():
+def test_fit_runs_and_routes_default_to_autograd_on_cpu(tmp_path):
     tt = Trainer(OFDMConfig(nbits=1), TrainConfig(
-        batch_size=42, msg_length=84, snr=5.0), channel="AWGN", device="cpu")
+        batch_size=42, msg_length=84, snr=5.0, save_dir=str(tmp_path),
+        token="T"), channel="AWGN", device="cpu")
     assert not tt._use_fused_model
     state, info = tt.fit(max_epochs=2, log_fn=lambda *a: None)
     assert [h["epoch"] for h in info["history"]] == [0, 1]
     assert state.step == 4 and info["best_epoch"] in (0, 1)
     for h in info["history"]:
         assert np.isfinite([h["train_loss"], h["val_ber"], h["val_loss"]]).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tt.fit(max_epochs=1, ckpt_dir="x")
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tt.fit(max_epochs=1, dump_constellations=True)
+    # resume payloads (ROADMAP.md Queue A item 5) and constellation dumps
+    # (item 11), which raised before they were ported
+    tt.fit(max_epochs=1, ckpt_dir=str(tmp_path / "x"), ckpt_every=1,
+           dump_constellations=True, log_fn=lambda *a: None)
+    assert os.path.isfile(tmp_path / "x" / "resume" / "state.npz")
+    for name in ("txiq", "rxiq"):
+        rows = np.loadtxt(tmp_path / f"T_{name}.csv", delimiter=",")
+        assert rows.shape == (2048, 2)
 
 
 @pytest.mark.parametrize("ber", [0.5, 0.05, 1e-3, 1e-5])

@@ -26,7 +26,8 @@ Phases, each printed with its elapsed seconds:
          the JAX package's own interleaved curve (`JAX_INTERLEAVED_BER`);
          the kernel's launch count must equal the number of calls;
       b. the point_batch protocol (410 calls of 2000 frames), held against
-         the committed CSV `runs/Test_DCCN_OFDM_Dense3_4mod_snr20_cpTrue_AWGN.csv`.
+         the committed CSV `runs/Test_DCCN_OFDM_Dense3_4mod_snr20_cpTrue_AWGN.csv`;
+    each point's ratio to its reference is printed.
  6. `fused_synthesize` against its plain version on the same Philox words:
     ETU nbits 1 at 9,362 frames, AWGN nbits 4 at 1,001 frames (ragged),
     mixAll nbits 2 at 997 frames.  Indices equal; signal and noise planes
@@ -154,23 +155,34 @@ Phases, each printed with its elapsed seconds:
          no host sync, and one graph a card replayed together 100 times
          with new inputs, each bit-equal to the plain version; the halo
          FIR at full width; otherwise one line that says it was not run.
-20. `complex_dense`'s bf16 mode (`compute_dtype='bfloat16'`: operands
-    rounded to bf16 as the kernel reads them, float32 sums) against its
-    plain version (atol = rtol = 1e-5) at the nfft-512 arm's shapes
-    (the sweep's call, 6,944 x 640 x 512; the training step's 511 and
-    3,584 rows), a ragged shape and K = 5,000 (streamed); its gradients
-    (rounded to bf16) within one bf16 ulp of float64 products; then its
-    time (CUDA graph) beside the float32 mode's, the plain version's and
-    one bf16 cuBLAS GEMM of the stacked real form [M, 2K] x [2K, 2F], and
-    its bound (the bytes, or the products at the bf16 tensor-core rate).
+20. `complex_dense`'s bf16 mode (`compute_dtype='bfloat16'`: the pack
+    kernel writes the stacked weight W_s in bf16, a tensor-core GEMM
+    rounds each x tile once and sums in float32; csrc/complex_dense_bf16.cu)
+    against its plain version (atol = rtol = 1e-5) at the nfft-512 arm's
+    shapes (the sweep's call, 6,944 x 640 x 512; the training step's 511
+    and 3,584 rows), a ragged shape with odd K (x by cp.async) and K =
+    5,000: the pack bit-equal to `pack_stacked_weight_ref`, two calls
+    bit-equal, the kernel's and the plain version's largest error against
+    float64 sums printed; its gradients (rounded to bf16) within one bf16
+    ulp of float64 products; then its time (CUDA graph) beside the FMA
+    mode it replaced (`FMA_BF16_MS`, printed as the parent), the float32
+    mode's, the plain version's and one bf16 cuBLAS GEMM of the stacked
+    real form [M, 2K] x [2K, 2F], its bound (the bytes, or the products
+    at the bf16 tensor-core rate), and the pack's time beside its plain
+    version's.
 21. the committed nfft-512 arm (`runs/arms/OFDM_Big512_1mod.npz`, bf16,
     28.7 M parameters) served at full width: interleaved `ber_sweep` on
     AWGN, SNR -10..20 dB, 20,000 frames a point in 1,000-frame batches
     (625 calls of 992 frames, key 999), held to the JAX package's own
     curve (`JAX_BIG512_BER`, `scripts/sweep_big512_jax.py`) at every
     point and to the committed CSV wherever that curve meets it (-10..15
-    dB; the CSV's TPU cliff at 16-20 dB is printed beside both); the
-    bf16 launches of `complex_dense` equal to the calls; frames/s.
+    dB; the CSV's TPU cliff at 16-20 dB is printed beside both), each
+    point's ratio to both; the bf16 launches of `complex_dense` and of
+    the pack equal to the calls; frames/s beside the FMA mode's.  First, the
+    plain data plane's bf16 unit noise: the table equal to JAX's 128
+    values (`JAX_BF16_NORMALS`), `awgn_channel` on the card drawing
+    through it.  Profiled with the profiled phases at the end: one
+    992-frame call under `torch.profiler`, its busy ms and top kernels.
 22. the CLI at full width: `python -m dl_ofdm_tpu_torch.cli train` of the
     nfft-512 bf16 receiver from scratch (3 epochs, a resume payload each
     epoch, its 41-point final sweep) in a temporary directory, then
@@ -181,10 +193,11 @@ Phases, each printed with its elapsed seconds:
     `bench.py`'s configuration at 2,340 frames (fused route) and the
     equalizer stage (opt 12, mixRayleigh).  Run after 19, before the
     profiled phases.
- 5. (printed last) one `{"kernels": [...]}` line with all six kernels
+ 5. (printed last) one `{"kernels": [...]}` line with all seven kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
-    its bf16 mode's from phases 21 and 22 beside phase 20's numbers), of
+    its bf16 mode's GEMM from phases 21 and 22 beside phase 20's
+    numbers), of `pack_stacked_weight` from phases 21 and 22, of
     `philox_probe` from phase 12, of `fir_shift_accum` from phases 14, 15
     and 19, of `ring_exchange` from phase 19c), then as the last line
     `{"ok": true, "device": {...}}`.
@@ -283,6 +296,11 @@ def meets(b, r) -> bool:
     """The curve rule at one point: |b/r - 1| <= 5% where r >= 1e-3, else
     b <= 3 r + 1e-6."""
     return abs(b / r - 1.0) <= 0.05 if r >= 1e-3 else b <= 3 * r + 1e-6
+
+
+def ratios(ber, ref) -> list:
+    """Each point's BER over its reference's (None where that is 0)."""
+    return [float(b) / r if r > 0 else None for b, r in zip(ber, ref)]
 
 
 def check_curve(name, ber, ref, ref_name, snrs=SNRS):
@@ -2170,11 +2188,40 @@ JAX_BIG512_BER = [
 ]
 BIG_POINT_FRAMES = 1000 // len(BIG_SNRS)    # 32 frames a point and call
 BIG_CALLS = 20000 // BIG_POINT_FRAMES       # 625 calls of 992 frames
+# the sweep's frames/s with the FMA mode (three runs of this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, `PERF.md` §6), printed as the parent
+FMA_BIG512_FRAMES_PER_S = (113681, 118276)
+# the 128 bf16 values of `jax.random.normal(key, shape, bfloat16)` (jax
+# 0.9 on the CPU), as bit patterns, for the 7 random bits 0..127 that
+# pick them; the port's `channel.awgn.bf16_normal_table` must equal them
+JAX_BF16_NORMALS = [
+    0xC039, 0xC015, 0xC007, 0xBFFA, 0xBFEB, 0xBFDE, 0xBFD4, 0xBFCA, 0xBFC2,
+    0xBFBB, 0xBFB4, 0xBFAD, 0xBFA7, 0xBFA1, 0xBF9C, 0xBF97, 0xBF92, 0xBF8D,
+    0xBF88, 0xBF84, 0xBF80, 0xBF79, 0xBF70, 0xBF69, 0xBF61, 0xBF5A, 0xBF53,
+    0xBF4C, 0xBF45, 0xBF3F, 0xBF38, 0xBF31, 0xBF2B, 0xBF25, 0xBF1F, 0xBF19,
+    0xBF13, 0xBF0D, 0xBF07, 0xBF01, 0xBEF7, 0xBEEC, 0xBEE1, 0xBED6, 0xBECC,
+    0xBEC0, 0xBEB5, 0xBEAB, 0xBEA0, 0xBE96, 0xBE8B, 0xBE81, 0xBE6E, 0xBE5A,
+    0xBE45, 0xBE30, 0xBE1C, 0xBE08, 0xBDE6, 0xBDBF, 0xBD97, 0xBD5D, 0xBD0D,
+    0xBC70, 0x3BA0, 0x3CC9, 0x3D34, 0x3D82, 0x3DAA, 0x3DD3, 0x3DFC, 0x3E12,
+    0x3E26, 0x3E3B, 0x3E4E, 0x3E64, 0x3E77, 0x3E86, 0x3E91, 0x3E9C, 0x3EA5,
+    0x3EB0, 0x3EBB, 0x3EC6, 0x3ED1, 0x3EDB, 0x3EE6, 0x3EF2, 0x3EFD, 0x3F04,
+    0x3F0A, 0x3F10, 0x3F16, 0x3F1C, 0x3F22, 0x3F28, 0x3F2E, 0x3F34, 0x3F3B,
+    0x3F42, 0x3F49, 0x3F50, 0x3F57, 0x3F5E, 0x3F65, 0x3F6C, 0x3F75, 0x3F7C,
+    0x3F82, 0x3F86, 0x3F8B, 0x3F90, 0x3F94, 0x3F99, 0x3F9F, 0x3FA4, 0x3FAA,
+    0x3FB1, 0x3FB8, 0x3FBF, 0x3FC6, 0x3FD0, 0x3FDA, 0x3FE5, 0x3FF2, 0x4001,
+    0x400D, 0x4021,
+]
 # complex_dense's bf16 shapes: the nfft-512 sweep's call (992 frames x 7
 # symbols, K = 640, F = 512) and the training step's at 73 frames
 # (`--batch_size 512`) and 512 frames
 CD_BF16_SHAPES = ((BIG_POINT_FRAMES * len(BIG_SNRS) * 7, 640, 512),
                   (73 * 7, 640, 512), (512 * 7, 640, 512))
+# the bf16 mode before its tensor-core kernel (a template flag of the
+# float32 FMA kernel) at those shapes, ms: the lowest and highest of three
+# runs of this script on an NVIDIA H100 80GB HBM3 at 700.00 W (`PERF.md`
+# §6), printed as the parent
+FMA_BF16_MS = {"6944x640x512": (4.689, 4.708), "511x640x512": (0.342, 0.345),
+                "3584x640x512": (2.384, 2.485)}
 # the CLI's full-width run (phase 22)
 CLI_ARGS = ["--nfft", "512", "--nfilter", "512", "--compute_dtype",
             "bfloat16", "--channel", "AWGN", "--SNR", "5", "--batch_size",
@@ -2208,32 +2255,65 @@ def bf16_library_gemm(x, wr, wi):
         "bf16 cuBLAS, float32 output"
 
 
+def float64_error(x, wr, wi, y) -> float:
+    """Largest |y - y64| for y64 the float64 products and sums of the
+    bf16-rounded operands: how far a float32 result is from exact."""
+    import torch
+    from dl_ofdm_tpu_torch.ops.pallas_kernels import bf16_round
+    xb, rb, ib = (bf16_round(t_).double() for t_ in (x, wr, wi))
+    y64 = torch.stack([xb[..., 0] @ rb - xb[..., 1] @ ib,
+                       xb[..., 0] @ ib + xb[..., 1] @ rb], -1)
+    return float((y.double() - y64).abs().max())
+
+
 def phase_cdense_bf16(tpk, dev, hbm_bps, peak_key) -> dict:
-    """Phase 20: `complex_dense`'s bf16 mode against its plain version
-    (atol = rtol = 1e-5) at the nfft-512 arm's sweep and training shapes,
-    a ragged one and K = 5,000 (x streamed in K chunks), its gradients
-    (rounded to bf16) within one bf16 ulp of float64 ones; then its times
-    beside the float32 mode's, the plain version's and one bf16 cuBLAS
-    GEMM's.  Returns the kernels line's bf16 entries."""
+    """Phase 20: `complex_dense`'s bf16 mode (the pack kernel and the
+    tensor-core GEMM of csrc/complex_dense_bf16.cu) against its plain
+    version (atol = rtol = 1e-5) at the nfft-512 arm's sweep and training
+    shapes, a ragged one with odd K (x by cp.async) and K = 5,000: the
+    packed weight bit-equal to `pack_stacked_weight_ref`, a second call
+    bit-equal to the first, the kernel's and the plain version's largest
+    error against float64 sums, its gradients (rounded to bf16) within
+    one bf16 ulp of float64 ones; then its times beside the float32
+    mode's, the plain version's, one bf16 cuBLAS GEMM's and the FMA
+    mode's it replaced (`FMA_BF16_MS`), and the pack's beside its plain
+    version.
+    Returns the kernels line's bf16 entries and the pack's entry."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(20)
-    k_ = tpk.complex_dense_kernel
-    inputs, errs = {}, []
+    k_, p_ = tpk.complex_dense_kernel, tpk.pack_stacked_weight_kernel
+    inputs, errs, f64 = {}, [], {}
     for m, k, f in CD_BF16_SHAPES + ((1001, 77, 50), (370, 5000, 64)):
         x = torch.randn(m, k, 2, device=dev, generator=gen)
         wr, wi = (torch.randn(k, f, device=dev, generator=gen) / k ** 0.5
                   for _ in range(2))
-        n32, n16 = k_.launches, k_.launches_bf16
+        n32, n16, npk = k_.launches, k_.launches_bf16, p_.launches
         with torch.no_grad():
             y = k_(x, wr, wi, "bfloat16")
+            y2 = k_(x, wr, wi, "bfloat16")
+            ws = p_(wr, wi)
             y_ref = tpk.complex_dense_ref(x, wr, wi, "bfloat16")
             y32 = tpk.complex_dense_ref(x, wr, wi)
         torch.cuda.synchronize()
-        if (k_.launches, k_.launches_bf16) != (n32, n16 + 1):
-            raise AssertionError("the bf16 mode did not count one bf16 "
-                                 "launch")
-        torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+        if (k_.launches, k_.launches_bf16, p_.launches) != (n32, n16 + 2,
+                                                            npk + 3):
+            raise AssertionError("the bf16 mode did not count one GEMM and "
+                                 "one pack launch a call")
+        if not torch.equal(ws.view(torch.int16), tpk.pack_stacked_weight_ref(
+                wr, wi).view(torch.int16)):
+            raise AssertionError(f"the pack kernel at {k}x{f} differs from "
+                                 "pack_stacked_weight_ref")
+        if not torch.equal(y, y2):
+            raise AssertionError(f"two bf16 calls at {m}x{k}x{f} on the same "
+                                 "inputs differ")
         err = float((y - y_ref).abs().max())
+        f64[f"{m}x{k}x{f}"] = {"kernel": float64_error(x, wr, wi, y),
+                               "plain": float64_error(x, wr, wi, y_ref)}
+        log(f"complex_dense bf16 [{m},{k},2]x[{k},{f}]: against float64 "
+            f"sums of the rounded operands, kernel "
+            f"{f64[f'{m}x{k}x{f}']['kernel']:.3g}, plain version "
+            f"{f64[f'{m}x{k}x{f}']['plain']:.3g}")
+        torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
         off = float((y - y32).abs().max())
         if off <= 1e-4:
             raise AssertionError(f"bf16 mode at {m}x{k}x{f} is within "
@@ -2264,9 +2344,12 @@ def phase_cdense_bf16(tpk, dev, hbm_bps, peak_key) -> dict:
         inputs[(m, k, f)] = (x, wr, wi)
         log(f"complex_dense bf16 [{m},{k},2]x[{k},{f}]: kernel == plain "
             f"version, max |diff| {err:.3g} (float32 operands {off:.3g} "
-            "away); gradients bf16, within 1 ulp")
+            "away); repeat bit-equal; pack bit-equal; gradients bf16, "
+            "within 1 ulp")
+    print(json.dumps({"phase": 20, "float64_max_abs_err": f64}), flush=True)
     by_shape = {n: {} for n in ("ms", "f32_mode_ms", "plain_ms",
-                                "library_ms", "bound_ms", "bound_by")}
+                                "library_ms", "bound_ms", "bound_by",
+                                "pack_ms", "pack_plain_ms", "pack_bound_ms")}
     for m, k, f in CD_BF16_SHAPES:
         x, wr, wi = inputs[(m, k, f)]
         lib, label = bf16_library_gemm(x, wr, wi)
@@ -2278,10 +2361,14 @@ def phase_cdense_bf16(tpk, dev, hbm_bps, peak_key) -> dict:
                                                            "bfloat16"),
                     "bf16": lambda: k_(x, wr, wi, "bfloat16"),
                     "f32": lambda: k_(x, wr, wi),
-                    "library": lib}
+                    "library": lib,
+                    "pack": lambda: p_(wr, wi),
+                    "pack_plain": lambda: tpk.pack_stacked_weight_ref(wr,
+                                                                      wi)}
             times = {n: [] for n in runs}
             iters = 20 if m > 2000 else 100
-            for n in ("plain", "bf16", "f32", "library", "library", "f32",
+            for n in ("plain", "bf16", "f32", "library", "pack",
+                      "pack_plain", "pack_plain", "pack", "library", "f32",
                       "bf16", "plain"):
                 times[n].append(time_ms(runs[n], iters))
         ms = {n: sum(t_[0] for t_ in v) / len(v) for n, v in times.items()}
@@ -2290,30 +2377,85 @@ def phase_cdense_bf16(tpk, dev, hbm_bps, peak_key) -> dict:
         n_flops = 8 * m * k * f
         # bf16 products summed in float32 are the tensor cores' work
         bound_ms, bound_by = bound_of(n_bytes, n_flops, hbm_bps, BF16_FLOPS)
-        plan = tpk.complex_dense_launch_plan(m, k, f, dev.index or 0, True)
+        # the pack reads wr and wi once and writes [2F, ldk] bf16
+        pack_bytes = 8 * k * f + 2 * 2 * f * tpk.stacked_pitch(k)
+        pack_bound = pack_bytes / hbm_bps * 1e3
+        plan = tpk.complex_dense_bf16_plan(m, k, f, tpk._sm_count(
+            dev.index or 0))
+        key = f"{m}x{k}x{f}"
         for n, v in (("ms", ms["bf16"]), ("f32_mode_ms", ms["f32"]),
                      ("plain_ms", ms["plain"]), ("library_ms", ms["library"]),
-                     ("bound_ms", bound_ms), ("bound_by", bound_by)):
-            by_shape[n][f"{m}x{k}x{f}"] = v
+                     ("bound_ms", bound_ms), ("bound_by", bound_by),
+                     ("pack_ms", ms["pack"]),
+                     ("pack_plain_ms", ms["pack_plain"]),
+                     ("pack_bound_ms", pack_bound)):
+            by_shape[n][key] = v
         print(json.dumps({
             "phase": 20, "kernel": "complex_dense", "mode": "bfloat16",
             "shape": [m, k, f], "kernel_ms": ms["bf16"],
+            "parent_fma_mode_ms": FMA_BF16_MS[key],
             "f32_mode_ms": ms["f32"], "plain_ms": ms["plain"],
             "library_ms": ms["library"], "library": label,
-            "library_max_abs_err": lib_err, "eager_ms": eager,
+            "library_max_abs_err": lib_err, "pack_ms": ms["pack"],
+            "pack_plain_ms": ms["pack_plain"], "pack_bytes": pack_bytes,
+            "pack_bound_ms": pack_bound, "eager_ms": eager,
             "timing": f"CUDA graph of {iters} calls", "plan": plan._asdict(),
             "bytes": n_bytes, "flops": n_flops, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_rate": "bf16 tensor cores",
+            "share_of_bound": bound_ms / ms["bf16"],
+            "over_library": ms["bf16"] / ms["library"],
             "peaks_of": peak_key}), flush=True)
         log(f"complex_dense bf16 [{m},{k},2]x[{k},{f}]: kernel "
-            f"{ms['bf16']:.4f} ms (float32 mode {ms['f32']:.4f}), plain "
-            f"{ms['plain']:.4f}, {label} {ms['library']:.4f}, bound "
-            f"{bound_ms:.4f} ms ({bound_by}); {plan.row_tiles} row tiles "
-            f"of {plan.rows_per_tile} on {plan.grid} blocks")
+            f"{ms['bf16']:.4f} ms (parent, the FMA mode, "
+            f"{FMA_BF16_MS[key][0]}-{FMA_BF16_MS[key][1]}; float32 mode "
+            f"{ms['f32']:.4f}), plain {ms['plain']:.4f}, {label} "
+            f"{ms['library']:.4f}, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms['bf16']:.0f} %); pack {ms['pack']:.4f} "
+            f"(plain {ms['pack_plain']:.4f}, bound {pack_bound:.4f}); "
+            f"{plan.tiles} tiles on {plan.grid} blocks")
     key = "x".join(map(str, CD_BF16_SHAPES[0]))     # the sweep's call
-    return {"bf16_max_abs_err": max(errs),
-            **{f"bf16_{n}": v[key] for n, v in by_shape.items()},
-            **{f"bf16_{n}_by_shape": v for n, v in by_shape.items()}}
+    out = {"bf16_source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",
+           "bf16_max_abs_err": max(errs), "bf16_float64_max_abs_err": f64,
+           **{f"bf16_{n}": v[key] for n, v in by_shape.items()
+              if not n.startswith("pack")},
+           **{f"bf16_{n}_by_shape": v for n, v in by_shape.items()
+              if not n.startswith("pack")}}
+    pack = {"max_abs_err": 0.0, "ms": by_shape["pack_ms"][key],
+            "plain_ms": by_shape["pack_plain_ms"][key],
+            "bound_ms": by_shape["pack_bound_ms"][key], "bound_by": "bytes",
+            "library_ms": None,
+            "ms_by_shape": by_shape["pack_ms"],
+            "plain_ms_by_shape": by_shape["pack_plain_ms"],
+            "check": "bit-equal to pack_stacked_weight_ref"}
+    return {"complex_dense": out, "pack": pack}
+
+
+def check_bf16_noise(dev) -> None:
+    """The plain data plane's bf16 unit noise on the card: the table equal
+    to JAX's (`JAX_BF16_NORMALS`) bit for bit, and `awgn_channel` drawing
+    through it (every unit normal one of its values, none of torch's
+    Gaussian tails), with its moments."""
+    import torch
+    from dl_ofdm_tpu_torch.channel import awgn
+    table = awgn.bf16_normal_table(dev)
+    got = table.view(torch.int16).cpu().numpy().view(np.uint16).tolist()
+    if got != JAX_BF16_NORMALS:
+        raise AssertionError("the bf16 normal table differs from JAX's")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(64, 7, 640, 2, device=dev, generator=gen)
+    y, _ = awgn.awgn_channel(x, torch.zeros(64, device=dev), gen)
+    unit = ((y - x * torch.rsqrt((x ** 2).sum(-1).mean())) / 0.5 ** 0.5)
+    dist = (unit.reshape(-1, 1) - table.float().reshape(1, -1)).abs()
+    far = float(dist.min(1).values.max())
+    var = float(unit.var())
+    log(f"bf16 unit noise on the card: table == JAX's 128 values; "
+        f"{unit.numel()} draws of awgn_channel within {far:.2g} of a table "
+        f"value, variance {var:.5f} (JAX's 0.99417), largest "
+        f"{float(unit.abs().max()):.4f}")
+    if far > 1e-5 or float(unit.abs().max()) > 2.9 \
+            or abs(var - 0.99417) > 0.01:
+        raise AssertionError("awgn_channel's bf16 noise is not drawn "
+                             "through JAX's table")
 
 
 def phase_serve_big512(tpk, dev) -> dict:
@@ -2321,7 +2463,8 @@ def phase_serve_big512(tpk, dev) -> dict:
     interleaved, SNR -10..20 dB, 20,000 frames a point in 1,000-frame
     batches (625 calls of 992 frames, key 999), held to the JAX package's
     own curve at every point and to the committed CSV wherever that curve
-    meets it; `complex_dense`'s bf16 launches equal to the calls."""
+    meets it, each point's ratio printed; `complex_dense`'s bf16 launches
+    (and the pack's) equal to the calls; frames/s beside the FMA mode's."""
     import torch
     from dl_ofdm_tpu_torch.config import TrainConfig
     from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
@@ -2330,21 +2473,24 @@ def phase_serve_big512(tpk, dev) -> dict:
     from dl_ofdm_tpu_torch.train.loop import Trainer
     tr = Trainer(big512_config(), TrainConfig(snr=5.0), channel="AWGN")
     tr.model.load_state_dict(params_from_flax(load_params_npz(BIG_ARM)))
-    k_ = tpk.complex_dense_kernel
+    k_, p_ = tpk.complex_dense_kernel, tpk.pack_stacked_weight_kernel
+    check_bf16_noise(dev)
     gen = torch.Generator(device=dev).manual_seed(999)
     torch.cuda.synchronize()
-    k_.launches = k_.launches_bf16 = 0
+    k_.launches = k_.launches_bf16 = p_.launches = 0
     t = time.time()
     res = ber_sweep(tr, gen, snrs=BIG_SNRS, frames_per_point=20000,
                     batch_frames=1000, log_fn=lambda *a: None)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {"bf16": k_.launches_bf16, "float32": k_.launches}
+    launches = {"bf16": k_.launches_bf16, "float32": k_.launches,
+                "pack": p_.launches}
     frames = BIG_CALLS * BIG_POINT_FRAMES * len(BIG_SNRS)
     log(f"nfft-512 arm, interleaved sweep: {BIG_CALLS} calls, {frames} "
-        f"frames in {wall:.3f} s = {frames / wall:.0f} frames/s; "
+        f"frames in {wall:.3f} s = {frames / wall:.0f} frames/s (the FMA "
+        f"mode: {FMA_BIG512_FRAMES_PER_S[0]}-{FMA_BIG512_FRAMES_PER_S[1]}); "
         f"complex_dense launches {launches}")
-    if launches != {"bf16": BIG_CALLS, "float32": 0}:
+    if launches != {"bf16": BIG_CALLS, "float32": 0, "pack": BIG_CALLS}:
         raise AssertionError(f"complex_dense launches {launches} in "
                              f"{BIG_CALLS} calls of the bf16 sweep")
     csv_ber = np.loadtxt(BIG_CSV, delimiter=",", skiprows=1)[:, 1]
@@ -2365,11 +2511,68 @@ def phase_serve_big512(tpk, dev) -> dict:
     print(json.dumps({
         "phase": 21, "sweep": "nfft-512 interleaved", "calls": BIG_CALLS,
         "frames": frames, "seconds": wall, "frames_per_s": frames / wall,
+        "parent_fma_mode_frames_per_s": FMA_BIG512_FRAMES_PER_S,
         "launches": launches, "ber": [float(b) for b in res.ber],
+        "ratio_to_jax": ratios(res.ber, JAX_BIG512_BER),
+        "ratio_to_csv": ratios(res.ber, csv_ber),
         "loss": [float(v) for v in res.loss],
         "csv_points_held": [BIG_SNRS[i] for i in held],
         "csv_points_tpu_only": rest}), flush=True)
-    return {"launches_bf16": launches["bf16"], "frames_per_s": frames / wall}
+    return {"launches_bf16": launches["bf16"],
+            "launches_pack": launches["pack"], "frames_per_s": frames / wall}
+
+
+def phase_profile_big512(dev, calls: int = 3) -> None:
+    """Phase 21, profiled (with the profiled phases at the end): one
+    992-frame call of the nfft-512 sweep (a 1-frame-batch sweep of 32
+    frames a point: the same call) under `torch.profiler`, `calls` times
+    after a warm-up; the device-busy ms a call, the kernels a call and the
+    ten kernels with the most device time, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dl_ofdm_tpu_torch.config import TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(big512_config(), TrainConfig(snr=5.0), channel="AWGN")
+    tr.model.load_state_dict(params_from_flax(load_params_npz(BIG_ARM)))
+    gen = torch.Generator(device=dev).manual_seed(999)
+
+    def one_call():
+        ber_sweep(tr, gen, snrs=BIG_SNRS, frames_per_point=BIG_POINT_FRAMES,
+                  batch_frames=1000, log_fn=lambda *a: None)
+
+    one_call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            one_call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / calls
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    busy = busy_us(kernels) / 1e3 / calls
+    line = {"phase": 21, "part": "profiled call", "frames": BIG_POINT_FRAMES
+            * len(BIG_SNRS), "calls": calls,
+            "profiled_wall_ms_per_call": wall_ms,
+            "busy_ms_per_call": busy,
+            "kernels_per_call": len(kernels) / calls,
+            "top_kernels_us_per_call": [[n[:80], us / calls]
+                                        for n, us in top]}
+    print(json.dumps(line), flush=True)
+    log(f"nfft-512 sweep call under the profiler: {wall_ms:.3f} ms wall, "
+        f"{busy:.3f} ms busy, {len(kernels) / calls:.0f} kernels a call")
+    for n, us in top:
+        log(f"  {us / calls / 1e3:8.4f} ms  {n[:90]}")
 
 
 def states_equal(a, b) -> list:
@@ -2448,11 +2651,13 @@ def phase_cli_big512(tpk, tfs, tfm, dev) -> dict:
             argv = CLI_ARGS + ["--save_dir", os.path.join(tmp, "out")]
             torch.cuda.synchronize()
             k_.launches = k_.launches_bf16 = 0
+            tpk.pack_stacked_weight_kernel.launches = 0
             t = time.time()
             cli.main(["train"] + argv)
             torch.cuda.synchronize()
             t_train = time.time() - t
-            launches = {"bf16": k_.launches_bf16, "float32": k_.launches}
+            launches = {"bf16": k_.launches_bf16, "float32": k_.launches,
+                        "pack": tpk.pack_stacked_weight_kernel.launches}
             csv = "Test_DCCN_Big512_AWGN.csv"
             first = open(csv, "rb").read()
             table = np.loadtxt(csv, delimiter=",", skiprows=1)
@@ -2474,7 +2679,8 @@ def phase_cli_big512(tpk, tfs, tfm, dev) -> dict:
     if second != first:
         raise AssertionError("--test on the saved checkpoint swept another "
                              "curve than the training run's final sweep")
-    if launches["bf16"] < 1 or launches["float32"] != 0:
+    if launches["bf16"] < 1 or launches["float32"] != 0 \
+            or launches["pack"] != launches["bf16"]:
         raise AssertionError(f"the CLI's bf16 run launched complex_dense "
                              f"{launches}")
     log(f"CLI train (nfft 512, bf16, 3 epochs, resume payload each epoch, "
@@ -2523,7 +2729,8 @@ def phase_cli_big512(tpk, tfs, tfm, dev) -> dict:
     print(json.dumps({"phase": 22, "cli_train_seconds": t_train,
                       "cli_test_seconds": t_test, "launches": launches,
                       "ber": table[:, 1].tolist()}), flush=True)
-    return {"launches_bf16": launches["bf16"]}
+    return {"launches_bf16": launches["bf16"],
+            "launches_pack": launches["pack"]}
 
 
 def main() -> None:
@@ -2693,6 +2900,9 @@ def main() -> None:
     print(json.dumps({
         "sweep": "interleaved", "calls": calls["interleaved"],
         "frames": frames, "seconds": wall, "frames_per_s": frames / wall,
+        "ratio_to_jax": ratios(res.ber, JAX_INTERLEAVED_BER),
+        "point_batch_ratio_to_csv": ratios(results["point_batch"][0].ber,
+                                           csv_ber),
         "point_batch_seconds": results["point_batch"][1],
         "point_batch_frames_per_s":
             results["point_batch"][2] / results["point_batch"][1]}),
@@ -2740,9 +2950,10 @@ def main() -> None:
     big = phase_serve_big512(tpk, dev)
     cli_run = phase_cli_big512(tpk, tfs, tfm, dev)
 
-    # -- 17-18. the profiled phases -------------------------------------------
+    # -- 17-18, 21. the profiled phases --------------------------------------
     phase_profile_eq(dev)
     phase_model_breakdown(tfm, dev)
+    phase_profile_big512(dev)
     static = {f"static_{k}": v for k, v in synth["line"].items()
               if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels += [
@@ -2783,7 +2994,13 @@ def main() -> None:
         launches_equalizer_serving=launches_serve["complex_dense"],
         launches_equalizer_training=launches_eq["complex_dense"],
         launches_bf16=big["launches_bf16"],
-        launches_bf16_cli=cli_run["launches_bf16"], **bf16)
+        launches_bf16_cli=cli_run["launches_bf16"], **bf16["complex_dense"])
+    kernels.insert(1, {
+        "name": "pack_stacked_weight", "route": "cuda",
+        "source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",
+        "replaces": "dl_ofdm_tpu/ops/pallas_kernels.py:80",
+        "launches": big["launches_pack"],
+        "launches_cli": cli_run["launches_pack"], **bf16["pack"]})
 
     # -- 5. kernels line and the result ---------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)

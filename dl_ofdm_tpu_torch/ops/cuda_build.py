@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # library name -> its source under csrc/
 SOURCES = {"complex_dense": "complex_dense.cu",
+           "complex_dense_bf16": "complex_dense_bf16.cu",
            "fused_synth": "fused_synth.cu",
            "fused_model": "fused_model.cu",
            "philox_probe": "philox_probe.cu",

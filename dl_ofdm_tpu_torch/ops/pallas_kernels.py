@@ -8,9 +8,12 @@ its counterpart is easy to find).  It holds both of that module's kernels.
 DCCN's `fft_like` layer and of the equalizer's `ToFreq`, `CorrT` and
 `ToTime`:
 
-  * `complex_dense_kernel` launches the CUDA kernel
-    (`csrc/complex_dense.cu`, built by `ops/cuda_build.py`) on a CUDA
-    tensor and counts its launches in `complex_dense_kernel.launches`;
+  * `complex_dense_kernel` launches the CUDA kernel on a CUDA tensor:
+    float32 (`csrc/complex_dense.cu`, built by `ops/cuda_build.py`,
+    counted in `complex_dense_kernel.launches`) or the bf16 mode's
+    tensor-core GEMM (`csrc/complex_dense_bf16.cu`, counted in
+    `complex_dense_kernel.launches_bf16`) after
+    `pack_stacked_weight_kernel` (counted in its own `.launches`);
   * `complex_dense_ref` is the plain version: four `torch.matmul`s and the
     recombination;
   * `complex_dense` is the differentiable op (`ComplexDenseFn`): the kernel
@@ -21,10 +24,12 @@ DCCN's `fft_like` layer and of the equalizer's `ToFreq`, `CorrT` and
 Each takes `compute_dtype`: None (float32 products) or 'bfloat16', the
 TPU kernel fed bf16 operands with float32 sums (`complex_ops.py:108-115`):
 x, wr and wi are rounded to bf16 (`bf16_round`) and the products summed
-in float32 (the kernel rounds as it loads, the plain version rounds
-first), and the backward pass rounds dx, dwr and dwi to bf16 as
-`_cdense_bwd` casts its cotangents to the primal dtype
-(`pallas_kernels.py:116-119`).
+in float32 (the kernel packs the rounded weight once a call and rounds
+each x value once a tile, the plain version rounds first), and the
+backward pass rounds dx, dwr and dwi to bf16 as `_cdense_bwd` casts its
+cotangents to the primal dtype (`pallas_kernels.py:116-119`).  The bf16
+kernel computes one real GEMM, x read as [M, 2K] times the stacked
+weight W_s [2K, 2F] that `pack_stacked_weight_ref` lays out.
 
 `fir_shift_accum`, the channel's per-row complex FIR over pre-aligned rows
 out[b, n] = sum_k h[b, k] xa[b, n + F - 1 - k] (`pallas_kernels.py:141-188`),
@@ -87,7 +92,7 @@ def complex_dense_ref(x_iq: torch.Tensor, wr: torch.Tensor,
 @functools.cache
 def _complex_dense_fn():
     fn = cuda_build.load("complex_dense").complex_dense_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -150,38 +155,198 @@ def complex_dense_plan(m: int, k: int, f: int, sms: int = 132,
 
 
 @functools.cache
-def _cd_occupancy(device: int, k_odd: bool, streamed: bool, bf16: bool,
+def _cd_occupancy(device: int, k_odd: bool, streamed: bool,
                   smem: int) -> tuple[int, int]:
-    """(SMs, blocks a SM holds) of the kernel for K's parity and modes at
+    """(SMs, blocks a SM holds) of the kernel for K's parity and mode at
     `smem` shared bytes on CUDA device `device`."""
     fn = cuda_build.load("complex_dense").complex_dense_f32_blocks_per_sm
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        err = fn(int(k_odd), int(streamed), int(bf16), smem, out)
+        err = fn(int(k_odd), int(streamed), smem, out)
     if err != 0 or out[0] < 1:
         raise RuntimeError(f"complex_dense occupancy query failed: CUDA "
                            f"error {err}, {out[0]} blocks a SM")
     return out[1], out[0]
 
 
-def complex_dense_launch_plan(m: int, k: int, f: int, device: int,
-                              bf16: bool = False) -> ComplexDensePlan:
+def complex_dense_launch_plan(m: int, k: int, f: int,
+                              device: int) -> ComplexDensePlan:
     """The plan `complex_dense_kernel` launches for x [m, k, 2] and w
-    [k, f] (m, k, f > 0) on CUDA device `device`, in the bf16 mode or
-    not."""
+    [k, f] (m, k, f > 0) on CUDA device `device` in the float32 mode."""
     rt, _, stage, smem = _cd_stage(k)
     return complex_dense_plan(m, k, f, *_cd_occupancy(
-        device, k % 2 == 1, stage < rt * k, bf16, smem))
+        device, k % 2 == 1, stage < rt * k, smem))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 mode: one real GEMM on the tensor cores (csrc/complex_dense_bf16.cu)
+# ---------------------------------------------------------------------------
+
+def stacked_pitch(k: int) -> int:
+    """bf16 values a row of the packed weight holds: 2K padded to a
+    multiple of 8 (16 bytes, the row pitch a TMA tensor map takes)."""
+    return -(-2 * k // 8) * 8
+
+
+def pack_stacked_weight_ref(wr: torch.Tensor,
+                            wi: torch.Tensor) -> torch.Tensor:
+    """The bf16 mode's packed weight, plain PyTorch: W_s [2K, 2F] with
+    W_s[2k, 2f] = wr, W_s[2k, 2f+1] = wi, W_s[2k+1, 2f] = -wi,
+    W_s[2k+1, 2f+1] = wr, all rounded to bf16, stored transposed
+    (K-major) as [2F, stacked_pitch(K)] with zeros past 2K.  x [M, K, 2]
+    read as [M, 2K] times W_s is y [M, F, 2] read as [M, 2F]."""
+    k, f = wr.shape
+    rb, ib = wr.to(torch.bfloat16).T, wi.to(torch.bfloat16).T   # [F, K]
+    ws = torch.zeros(2 * f, stacked_pitch(k), dtype=torch.bfloat16,
+                     device=wr.device)
+    ws[0::2, 0:2 * k:2] = rb
+    ws[0::2, 1:2 * k:2] = -ib
+    ws[1::2, 0:2 * k:2] = ib
+    ws[1::2, 1:2 * k:2] = rb
+    return ws
+
+
+# the GEMM kernel's layout, which its plan sizes: 128 x 128 output tiles
+# of the [M, 2F] result, k tiles of 64 of the 2K columns, a ring of 4
+# stages of a float32 x tile (32 KB) and a bf16 W_s tile (16 KB), 1,024
+# bytes of alignment and 64 of mbarriers: 197,696 bytes, one block a SM
+CDB_BM, CDB_BN, CDB_BK, CDB_STAGES = 128, 128, 64, 4
+CDB_SMEM = (CDB_STAGES * (CDB_BM * CDB_BK * 4 + CDB_BN * CDB_BK * 2)
+            + 1024 + 64)
+
+
+class ComplexDenseBf16Plan(NamedTuple):
+    m_tiles: int
+    n_tiles: int            # tiles of the 2F columns, walked fastest
+    tiles: int
+    k_tiles: int            # of the 2K columns
+    grid: int               # persistent blocks, one a SM at most
+    stages: int
+    smem_bytes: int
+    tma_x: bool             # x by TMA; False: K odd, x by cp.async
+    ldk: int                # the packed weight's row pitch (bf16 values)
+
+
+@functools.lru_cache(maxsize=64)
+def complex_dense_bf16_plan(m: int, k: int, f: int,
+                            sms: int = 132) -> ComplexDenseBf16Plan:
+    """The bf16 GEMM's plan for x [m, k, 2] and w [k, f] on a card of `sms`
+    SMs: one block a SM walking tiles t = blockIdx.x, + grid, ..., tile t
+    being rows 128 (t // n_tiles) and columns 128 (t % n_tiles) of y
+    [m, 2f]; x comes by TMA unless K is odd, when its row pitch (8K bytes)
+    is not a multiple of 16."""
+    m_tiles = -(-m // CDB_BM)
+    n_tiles = -(-2 * f // CDB_BN)
+    tiles = m_tiles * n_tiles
+    return ComplexDenseBf16Plan(m_tiles, n_tiles, tiles, -(-2 * k // CDB_BK),
+                                min(sms, tiles), CDB_STAGES, CDB_SMEM,
+                                k % 2 == 0, stacked_pitch(k))
+
+
+@functools.cache
+def _cdb_lib():
+    lib = cuda_build.load("complex_dense_bf16")
+    lib.cd_bf16_pack.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.cd_bf16_tensor_map.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int] \
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+    lib.cd_bf16_gemm.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in (lib.cd_bf16_pack, lib.cd_bf16_tensor_map, lib.cd_bf16_gemm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _tensor_map(ptr: int, bf16: bool, cols: int, rows: int, pitch: int,
+                box_cols: int, box_rows: int):
+    """The 128-byte TMA tensor map of a 2-D operand at address `ptr`,
+    cached by what it encodes (the address, shape, pitch and box)."""
+    out = (ctypes.c_ubyte * 128)()
+    err = _cdb_lib().cd_bf16_tensor_map(out, ptr, int(bf16), cols, rows,
+                                        pitch, box_cols, box_rows)
+    if err != 0:
+        raise RuntimeError(f"complex_dense bf16: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {err}) for [{rows}, {cols}]")
+    return out
+
+
+def pack_stacked_weight_kernel(wr: torch.Tensor,
+                               wi: torch.Tensor) -> torch.Tensor:
+    """Launch the pack kernel: wr, wi [K, F] contiguous float32 on one CUDA
+    device -> `pack_stacked_weight_ref`'s [2F, stacked_pitch(K)] bf16,
+    bit for bit.  Counts its launches in `.launches`."""
+    if not (wr.is_cuda and wi.device == wr.device):
+        raise ValueError("pack_stacked_weight_kernel: wr and wi must be on "
+                         "one CUDA device")
+    if wr.dtype != torch.float32 or wi.dtype != torch.float32:
+        raise TypeError("pack_stacked_weight_kernel takes float32 tensors")
+    if wr.dim() != 2 or wr.shape != wi.shape or not (
+            wr.is_contiguous() and wi.is_contiguous()):
+        raise ValueError("pack_stacked_weight_kernel takes contiguous [K, F] "
+                         "tensors of one shape")
+    k, f = wr.shape
+    ws = torch.empty(2 * f, stacked_pitch(k), dtype=torch.bfloat16,
+                     device=wr.device)
+    if k == 0 or f == 0:
+        return ws.zero_()
+    with torch.cuda.device(wr.device):
+        err = _cdb_lib().cd_bf16_pack(
+            wr.data_ptr(), wi.data_ptr(), ws.data_ptr(), k, f, ws.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"complex_dense bf16 pack launch failed: CUDA "
+                           f"error {err}")
+    pack_stacked_weight_kernel.launches += 1
+    return ws
+
+
+pack_stacked_weight_kernel.launches = 0
+
+
+def _complex_dense_bf16(x_iq: torch.Tensor, wr: torch.Tensor,
+                        wi: torch.Tensor) -> torch.Tensor:
+    """The bf16 mode on checked operands: the pack, then the GEMM."""
+    m, k, _ = x_iq.shape
+    f = wr.shape[1]
+    y = torch.empty(m, f, 2, device=x_iq.device, dtype=torch.float32)
+    if m == 0 or f == 0:    # an empty grid is an invalid launch
+        return y
+    if k == 0:              # an empty sum
+        return y.zero_()
+    dev = x_iq.device.index
+    ws = pack_stacked_weight_kernel(wr, wi)
+    plan = complex_dense_bf16_plan(m, k, f, _sm_count(dev))
+    xmap = (_tensor_map(x_iq.data_ptr(), False, 2 * k, m, 8 * k, 32, CDB_BM)
+            if plan.tma_x else None)
+    wmap = _tensor_map(ws.data_ptr(), True, plan.ldk, 2 * f, 2 * plan.ldk,
+                       CDB_BK, CDB_BN)
+    with torch.cuda.device(dev):
+        err = _cdb_lib().cd_bf16_gemm(
+            xmap, wmap, x_iq.data_ptr(), y.data_ptr(), m, 2 * k, 2 * f,
+            int(plan.tma_x), plan.grid, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"complex_dense bf16 GEMM launch failed: CUDA "
+                           f"error {err}")
+    complex_dense_kernel.launches_bf16 += 1
+    return y
 
 
 def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
                          wi: torch.Tensor,
                          compute_dtype: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x [M, K, 2], wr/wi [K, F] -> y [M, F, 2], all
-    contiguous float32 on one CUDA device; with 'bfloat16' the kernel
-    rounds every operand to bf16 as it reads it.  Raises on anything
+    contiguous float32 on one CUDA device; with 'bfloat16' the pack kernel
+    and the tensor-core GEMM on bf16 operands.  Raises on anything
     else."""
     bf16 = is_bf16(compute_dtype)
     if not (x_iq.is_cuda and wr.device == x_iq.device
@@ -206,31 +371,30 @@ def complex_dense_kernel(x_iq: torch.Tensor, wr: torch.Tensor,
     f = wr.shape[1]
     if max(m, k, f) >= 2**31:
         raise ValueError("complex_dense_kernel: sizes overflow int32")
+    if bf16:
+        return _complex_dense_bf16(x_iq, wr, wi)
     y = torch.empty(m, f, 2, device=x_iq.device, dtype=torch.float32)
     if m == 0 or f == 0:    # an empty grid is an invalid launch
         return y
     if k == 0:              # an empty sum
         return y.zero_()
     dev = x_iq.device.index
-    plan = complex_dense_launch_plan(m, k, f, dev, bf16)
+    plan = complex_dense_launch_plan(m, k, f, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _complex_dense_fn()(x_iq.data_ptr(), wr.data_ptr(),
                                   wi.data_ptr(), y.data_ptr(), m, k, f,
                                   plan.rows_per_tile, plan.k_chunk,
                                   plan.stage_elems, plan.smem_bytes,
-                                  plan.grid, int(bf16), stream)
+                                  plan.grid, stream)
     if err != 0:
         raise RuntimeError(f"complex_dense kernel launch failed: CUDA error "
                            f"{err}")
-    if bf16:
-        complex_dense_kernel.launches_bf16 += 1
-    else:
-        complex_dense_kernel.launches += 1
+    complex_dense_kernel.launches += 1
     return y
 
 
-# launches of the float32 mode and of the bf16 mode
+# launches of the float32 mode and of the bf16 mode's GEMM
 complex_dense_kernel.launches = 0
 complex_dense_kernel.launches_bf16 = 0
 

@@ -71,6 +71,29 @@ def test_bf16_complex_dense_matches_pallas(m, k, f, rng):
     assert np.abs(tpk.complex_dense_ref(*args).numpy() - want).max() > 1e-3
 
 
+@pytest.mark.parametrize("m,k,f", [(24, 80, 64), (37, 77, 50), (9, 1, 3),
+                                   (16, 640, 40)])
+def test_stacked_weight_times_x_is_the_bf16_mode(m, k, f, rng):
+    """The bf16 kernel's one real GEMM: x read as [M, 2K], rounded to
+    bf16, times the packed weight (`pack_stacked_weight_ref`, W_s stored
+    transposed) is y read as [M, 2F], against the plain version and JAX's
+    Pallas `complex_dense` fed bf16 operands (interpret mode), to 1e-5;
+    the pitch's padding adds nothing."""
+    x, wr, wi = _inputs(rng, m, k, f)
+    ws = tpk.pack_stacked_weight_ref(torch.from_numpy(wr),
+                                     torch.from_numpy(wi))
+    a = tpk.bf16_round(torch.from_numpy(x).reshape(m, 2 * k))
+    pad = torch.nn.functional.pad(a, (0, ws.shape[1] - 2 * k), value=1.0)
+    for xa, w in ((a, ws[:, :2 * k]), (pad, ws)):
+        got = (xa.double() @ w.double().T).float().reshape(m, f, 2)
+        want = np.asarray(_jax_cdense_bf16(*map(jnp.asarray, (x, wr, wi))))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(
+            got, tpk.complex_dense_ref(*(torch.from_numpy(t_) for t_ in
+                                         (x, wr, wi)), "bfloat16"),
+            atol=1e-5, rtol=1e-5)
+
+
 def test_bf16_complex_dense_gradients_match_pallas_vjp(rng):
     x, wr, wi = _inputs(rng, 30, 48, 20)
     g = rng.normal(size=(30, 20, 2)).astype(np.float32)

@@ -685,3 +685,33 @@ def test_ring_exchange_across_cards_in_graphs_and_back_to_back(cuda):
         want = halo.ring_exchange_ref(lt, rh)
         _sync_all(devs)
         _assert_ring_equal(recv, want)
+
+
+@pytest.mark.parametrize("m,k,f", [(6944, 640, 512), (511, 640, 512),
+                                   (3584, 640, 512), (1001, 77, 50),
+                                   (370, 5000, 64)])
+def test_complex_dense_bf16_tensor_core_kernel(cuda, m, k, f):
+    """The bf16 mode's pack and tensor-core GEMM (csrc/complex_dense_bf16.cu)
+    at the nfft-512 shapes, ragged with odd K (x by cp.async) and K =
+    5,000: the packed weight bit-equal to `pack_stacked_weight_ref`, y
+    within 1e-5 of the plain version, a second call on the same inputs
+    bit-equal, one pack and one GEMM launch counted a call and none of the
+    float32 mode's."""
+    g = torch.Generator(device=cuda).manual_seed(k + f)
+    x = torch.randn(m, k, 2, device=cuda, generator=g)
+    wr, wi = (torch.randn(k, f, device=cuda, generator=g) / k ** 0.5
+              for _ in range(2))
+    ws = tpk.pack_stacked_weight_kernel(wr, wi)
+    assert torch.equal(ws.view(torch.int16),
+                       tpk.pack_stacked_weight_ref(wr, wi).view(torch.int16))
+    k_, p_ = tpk.complex_dense_kernel, tpk.pack_stacked_weight_kernel
+    before = (k_.launches, k_.launches_bf16, p_.launches)
+    y = k_(x, wr, wi, "bfloat16")
+    y2 = k_(x, wr, wi, "bfloat16")
+    torch.cuda.synchronize()
+    assert (k_.launches, k_.launches_bf16, p_.launches) == (
+        before[0], before[1] + 2, before[2] + 2)
+    assert torch.equal(y, y2)
+    torch.testing.assert_close(
+        y, tpk.complex_dense_ref(x, wr, wi, "bfloat16"), atol=1e-5,
+        rtol=1e-5)

@@ -1,11 +1,13 @@
 """The launch plans of the port's two GEMM kernels, in the plain Python that
 the wrappers hand to the card (`dl_ofdm_tpu_torch/ops/fused_model.py`
 `model_plan`, `dl_ofdm_tpu_torch/ops/pallas_kernels.py`
-`complex_dense_plan`): split-K counts, the bf16 buffers' padded row
-pitches that the TMA tensor maps take, and the persistent
-`complex_dense`'s tiles and grid.  The kernels themselves run only on the
+`complex_dense_plan` and `complex_dense_bf16_plan`): split-K counts, the
+bf16 buffers' padded row pitches that the TMA tensor maps take, and the
+persistent `complex_dense` kernels' tiles and grids.  The kernels themselves run only on the
 card (`tests/test_torch_cuda.py`)."""
 import functools
+import os
+import re
 
 import pytest
 
@@ -168,3 +170,87 @@ def test_complex_dense_plan_marks_k_past_the_ring(k):
     else:
         assert rt == 2 and plan.stage_elems >= rt * k
     assert (plan.row_tiles - 1) * rt < 100 <= plan.row_tiles * rt
+
+
+# complex_dense's bf16 mode (csrc/complex_dense_bf16.cu): the nfft-512
+# sweep's and training step's shapes, 3,584 rows, ragged and odd K, K past
+# 5,000
+CDB_SHAPES = [(6944, 640, 512), (511, 640, 512), (3584, 640, 512),
+              (1001, 77, 50), (370, 5000, 64), (1, 1, 1), (129, 2, 65)]
+CDB_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "dl_ofdm_tpu_torch", "csrc",
+    "complex_dense_bf16.cu")
+
+
+def _block_tiles(plan, block: int):
+    """The (rows, columns) ranges of y [M, 2F] that block `block` computes,
+    as csrc/complex_dense_bf16.cu's `gemm` walks its tiles (unclipped: the
+    kernel's stores stop at M and 2F)."""
+    out = []
+    for t in range(block, plan.tiles, plan.grid):
+        m0, n0 = t // plan.n_tiles * tpk.CDB_BM, t % plan.n_tiles * tpk.CDB_BN
+        out.append((range(m0, m0 + tpk.CDB_BM), range(n0, n0 + tpk.CDB_BN)))
+    return out
+
+
+@pytest.mark.parametrize("m,k,f", CDB_SHAPES)
+def test_complex_dense_bf16_plan_covers_each_output_once(m, k, f):
+    """The persistent blocks' tiles, walked as the kernel walks them, hold
+    every row of y [M, 2F] and every column exactly once; no more blocks
+    than SMs or tiles; x by TMA exactly when K is even (a row pitch of 8K
+    bytes, a multiple of 16), the packed weight's pitch 16-byte whole."""
+    plan = tpk.complex_dense_bf16_plan(m, k, f)
+    assert 0 < plan.grid <= min(132, plan.tiles)
+    assert plan.tiles == plan.m_tiles * plan.n_tiles
+    assert plan.k_tiles * tpk.CDB_BK >= 2 * k > (plan.k_tiles - 1) * tpk.CDB_BK
+    assert plan.tma_x == (k % 2 == 0) == (8 * k % 16 == 0)
+    assert plan.ldk >= 2 * k and plan.ldk % 8 == 0 and plan.ldk - 2 * k < 8
+    seen = {}
+    for b in range(plan.grid):
+        tiles = _block_tiles(plan, b)
+        assert tiles, f"block {b} has no tile"
+        for rows, cols in tiles:
+            assert (len(rows), len(cols)) == (tpk.CDB_BM, tpk.CDB_BN)
+            assert (rows.start, cols.start) not in seen
+            seen[rows.start, cols.start] = b
+    cover_r = sorted({r for r, _ in seen})
+    cover_c = sorted({c for _, c in seen})
+    assert cover_r == list(range(0, m, tpk.CDB_BM))
+    assert cover_c == list(range(0, 2 * f, tpk.CDB_BN))
+    assert len(seen) == plan.tiles == len(cover_r) * len(cover_c)
+
+
+def test_complex_dense_bf16_plan_mirrors_the_source():
+    """The plan's tile, depth, stages and shared bytes are the source's
+    constants, and the shared bytes fit a Hopper block (232,448)."""
+    src = open(CDB_SOURCE).read()
+    const = {n: int(v) for n, v in re.findall(r"\b(BM|BN|BK|ST) = (\d+)",
+                                               src)}
+    assert const == {"BM": tpk.CDB_BM, "BN": tpk.CDB_BN, "BK": tpk.CDB_BK,
+                     "ST": tpk.CDB_STAGES}
+    stage = tpk.CDB_BM * tpk.CDB_BK * 4 + tpk.CDB_BN * tpk.CDB_BK * 2
+    assert tpk.CDB_SMEM == tpk.CDB_STAGES * stage + 1024 + 64
+    assert tpk.CDB_SMEM <= 232448
+    plan = tpk.complex_dense_bf16_plan(6944, 640, 512)
+    assert (plan.m_tiles, plan.n_tiles, plan.grid) == (55, 8, 132)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 77, 640, 5000])
+def test_packed_weight_pitch_and_layout(k):
+    """`pack_stacked_weight_ref`: [2F, stacked_pitch(K)] bf16, zeros past
+    2K, each 2 x 2 block of (wr, -wi; wi, wr) rounded to bf16."""
+    import torch
+    g = torch.Generator().manual_seed(k)
+    wr, wi = torch.randn(k, 3, generator=g), torch.randn(k, 3, generator=g)
+    ws = tpk.pack_stacked_weight_ref(wr, wi)
+    assert ws.dtype == torch.bfloat16
+    assert ws.shape == (6, tpk.stacked_pitch(k))
+    assert tpk.stacked_pitch(k) == -(-2 * k // 8) * 8
+    assert torch.all(ws[:, 2 * k:] == 0)
+    rb, ib = wr.to(torch.bfloat16), wi.to(torch.bfloat16)
+    for kk in range(k):
+        for ff in range(3):
+            blk = ws[2 * ff:2 * ff + 2, 2 * kk:2 * kk + 2]
+            want = torch.stack([torch.stack([rb[kk, ff], -ib[kk, ff]]),
+                                torch.stack([ib[kk, ff], rb[kk, ff]])])
+            assert torch.equal(blk, want)

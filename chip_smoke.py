@@ -193,13 +193,34 @@ Phases, each printed with its elapsed seconds:
     `bench.py`'s configuration at 2,340 frames (fused route) and the
     equalizer stage (opt 12, mixRayleigh).  Run after 19, before the
     profiled phases.
+23. the classical-receiver baselines at the MATLAB protocol (nfft 64, 7
+    symbols, CP 16, lte pilots, SNR -10:5:30, 20,000 frames a point in
+    2,000-frame batches, seed 0), each curve through
+    `cli.main(["baseline", ...])` in a temporary directory, with TF32 set
+    on by the caller (the run must log float32 'highest' without TF32 and
+    hand TF32 back): a. EVA static BPSK for estimators 1-10 against
+    `runs/BER_OFDM_EVA_<name>_lte_64_Gray.csv`, one `fir_shift_accum`
+    launch a batch (90 a curve, 99 for id 10: 909); b. AWGN, all four
+    modulations, against `runs/BER_OFDM_AWGN_Perfect_lte_64_Gray.csv`;
+    c. EVA mobile (70 Hz), estimator 10, symbol-averaged and per-sample
+    fading, against `runs/BER_OFDM_EVA_LMMSE-Fast_lte_64_Gray_mobile.csv`;
+    every point whose CSV BER is at least 1e-3 within [0.8, 1.25] of it
+    (below, both printed); each curve's seconds and frames/s beside the
+    card's name and power limit.  d. `fir_shift_accum` at the baseline's
+    shape (2,000 x 570, EVA's 11 taps) bit-equal to its
+    plain version and `fir_same_iq`, its device time (CUDA graph) beside
+    phase 13's shape, the plain version, one grouped `F.conv1d` and the
+    bound.  Profiled with the profiled phases at the end: one 2,000-frame
+    LS-Quadeer batch (ms, busy ms, idle share, kernels and host waits a
+    batch, top kernels).
  5. (printed last) one `{"kernels": [...]}` line with all seven kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
     its bf16 mode's GEMM from phases 21 and 22 beside phase 20's
     numbers), of `pack_stacked_weight` from phases 21 and 22, of
     `philox_probe` from phase 12, of `fir_shift_accum` from phases 14, 15
-    and 19, of `ring_exchange` from phase 19c), then as the last line
+    and 19 and 23 (with the baseline shape's numbers), of `ring_exchange`
+    from phase 19c), then as the last line
     `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
@@ -2733,6 +2754,269 @@ def phase_cli_big512(tpk, tfs, tfm, dev) -> dict:
             "launches_pack": launches["pack"]}
 
 
+# -- 23: the classical-receiver baselines ------------------------------------
+# the MATLAB protocol (`runs/run_experiments.py:89-102`): nfft 64, 7
+# symbols, CP 16, lte pilots, SNR -10:5:30, 20,000 frames a point in
+# 2,000-frame batches, seed 0; each curve held to its committed CSV
+BASE_SNRS = list(range(-10, 31, 5))
+BASE_FRAMES = 20000
+BASE_BATCH = 2000
+BASE_IDS = tuple(range(1, 11))
+BASE_BAND = (0.8, 1.25)            # phase 14's band, where the CSV's
+BASE_MIN_BER = 1e-3                # BER is at least this
+BASE_FIR = (BASE_BATCH, FIR_LEN, 11)   # EVA's FIR: rows, outputs, taps
+
+
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def baseline_curve(tpk, args: list, rows, ref_csv: str, label: str,
+                   want_launches: int, tag: str = "") -> dict:
+    """`cli.main(["baseline", *args])` on the card, in a temporary
+    directory: each row of `rows` of the CSV it writes (`ref_csv`'s name
+    with `tag` before `.csv`) held to the same
+    row of `runs/<ref_csv>` (ratio within `BASE_BAND` where that BER is
+    at least `BASE_MIN_BER`, printed below it), `fir_shift_accum`
+    launched `want_launches` times; seconds and frames/s of the curve.
+    The caller's float32 setting is TF32 on, so that the run shows its
+    own: it must log 'highest' without TF32 and hand TF32 back."""
+    import contextlib
+    import torch
+    from dl_ofdm_tpu_torch import cli
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    tee = Tee(sys.stdout)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        tpk.fir_shift_accum_kernel.launches = 0
+        t = time.time()
+        with contextlib.redirect_stdout(tee):
+            cli.main(["baseline", "--frames", str(BASE_FRAMES),
+                      "--save_dir", tmp] + args)
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = tpk.fir_shift_accum_kernel.launches
+        written = sorted(os.listdir(tmp))
+        name = ref_csv[:-4] + tag + ".csv"
+        table = np.loadtxt(os.path.join(tmp, name), delimiter=",")
+    settings = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    inside = [line for line in "".join(tee.text).splitlines()
+              if "matmul precision" in line]
+    if settings != (True, "high") or not inside \
+            or "precision highest, allow_tf32 False" not in inside[0]:
+        raise AssertionError(f"{label}: float32 setting inside the run "
+                             f"{inside[:1]}, after it {settings}")
+    stem = name[:-4]
+    if written != sorted([name, stem + ".mat", "SER" + stem[3:] + ".csv"]):
+        raise AssertionError(f"{label}: the CLI wrote {written}")
+    ref = np.loadtxt(os.path.join(ROOT, "runs", ref_csv), delimiter=",")
+    if table.shape != (5, len(BASE_SNRS)) \
+            or not np.array_equal(table[0], BASE_SNRS) \
+            or not np.all(np.isfinite(table)):
+        raise AssertionError(f"{label}: CSV malformed, {table.shape}")
+    bad, out_rows = [], {}
+    for r in rows:
+        ber, want = table[r], ref[r]
+        rat = [float(b / w) if w > 0 else None for b, w in zip(ber, want)]
+        for snr, b, w, q in zip(BASE_SNRS, ber, want, rat):
+            held = w >= BASE_MIN_BER
+            ok = not held or BASE_BAND[0] <= q <= BASE_BAND[1]
+            log(f"  {label} row {r} SNR {snr:+3d} dB: BER {b:.6g}  CSV "
+                f"{w:.6g}  " + (f"ratio {q:.4f}" if held else "(not held)")
+                + ("" if ok else "  FAIL"))
+            if not ok:
+                bad.append((r, snr))
+        out_rows[r] = {"ber": ber.tolist(), "csv": want.tolist(),
+                       "ratio": rat}
+    frames = BASE_FRAMES * len(BASE_SNRS) * len(rows)
+    line = {"phase": 23, "curve": label, "args": args, "csv": ref_csv,
+            "rows": out_rows, "seconds": seconds,
+            "frames_per_s": frames / seconds,
+            "fir_shift_accum_launches": launches,
+            "setting_inside_run": inside[0].split(": ", 1)[-1],
+            "tf32_and_precision_after_run": list(settings)}
+    print(json.dumps(line), flush=True)
+    log(f"{label}: {frames} frames in {seconds:.2f} s = "
+        f"{frames / seconds:.0f} frames/s; fir_shift_accum launches "
+        f"{launches}")
+    if bad:
+        raise AssertionError(f"{label} misses {ref_csv} at (row, SNR) {bad}")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: fir_shift_accum launched {launches} "
+                             f"times, expected {want_launches}")
+    return line
+
+
+def phase_baseline_fir(tpk, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 23d: `fir_shift_accum` at the baseline's shape (2,000 rows of
+    570 samples, EVA's 11 taps) against its plain version, bit-equal as
+    phase 13 holds it, and `fir_same_iq` on the card (one launch) against
+    the plain loop; device times from CUDA graphs of the kernel, its plain
+    version and one grouped `F.conv1d`, here and at phase 13's 30,000 x
+    560 x 13, with each shape's bound."""
+    import torch
+    from dl_ofdm_tpu_torch.channel import fir
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for label, channel, (b, l_out, f) in (
+            ("baseline", "EVA", BASE_FIR),
+            ("phase 13", "ETU", (30000, FIR_LEN, 13))):
+        x, h, offsets, xa, hp = fir_planes(channel, b, gen)
+        if hp[0].shape != (b, f) or xa[0].shape != (b, l_out + f - 1):
+            raise AssertionError(f"{channel} planes {tuple(xa[0].shape)}")
+        y = fir.fir_same_iq(x, h, offsets)
+        yr, yi = tpk.fir_shift_accum_kernel(*xa, *hp, l_out)
+        wr, wi = tpk.fir_shift_accum_ref(*xa, *hp, l_out)
+        torch.cuda.synchronize()
+        err = max(float((yr - wr).abs().max()), float((yi - wi).abs().max()))
+        err_same = float((y - torch.stack([wr, wi], -1)).abs().max())
+        if err or err_same:
+            raise AssertionError(
+                f"fir_shift_accum at {b} x {l_out}, {f} taps: kernel "
+                f"{err:.3g}, fir_same_iq {err_same:.3g} from the plain "
+                "version; want bit-equal")
+        lib = conv1d_fir(xa, hp)
+        runs = {"kernel": lambda: tpk.fir_shift_accum_kernel(*xa, *hp,
+                                                             l_out),
+                "plain": lambda: tpk.fir_shift_accum_ref(*xa, *hp, l_out),
+                "library": lib}
+        ms = {n: [] for n in runs}
+        for n in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+            ms[n].append(time_ms(runs[n], 20 if n == "plain" else 100)[0])
+        ms = {n: sum(v) / len(v) for n, v in ms.items()}
+        n_bytes = 4 * (2 * b * (l_out + f - 1) + 2 * b * f + 2 * b * l_out)
+        flops = 8 * b * l_out * f
+        bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+        line = {"phase": 23, "kernel": "fir_shift_accum", "shape": label,
+                "rows": b, "outputs": l_out, "taps": f, "max_abs_err": err,
+                "fir_same_iq_err": err_same, "kernel_ms": ms["kernel"],
+                "plain_ms": ms["plain"], "conv1d_ms": ms["library"],
+                "timing": "CUDA graph", "bytes": n_bytes, "flops": flops,
+                "bound_ms": bound, "bound_by": by}
+        print(json.dumps(line), flush=True)
+        log(f"fir_shift_accum {label} {b} x {l_out}, {f} taps: == plain "
+            f"version; kernel {ms['kernel']:.4f} ms (graph), plain "
+            f"{ms['plain']:.4f}, grouped conv1d {ms['library']:.4f}, bound "
+            f"{bound:.4f} ms ({by})")
+        out[label] = line
+    return out
+
+
+def phase_baselines(tpk, dev, smi: str) -> dict:
+    """Phase 23a-c: the classical benchmark at the MATLAB protocol
+    through `cli.main(["baseline", ...])`: EVA static BPSK for every
+    estimator (one `fir_shift_accum` launch a batch: 90 a curve, 99 for
+    id 10, whose long-term ensemble fades one more batch a point), AWGN
+    with all four modulations (no FIR), EVA mobile with estimator 10 with
+    both fading modes (the plain per-symbol FIR)."""
+    from dl_ofdm_tpu_torch.baselines.estimators import ESTIMATOR_NAMES
+    lines = []
+    batches = len(BASE_SNRS) * BASE_FRAMES // BASE_BATCH
+    for eq in BASE_IDS:
+        csv = f"BER_OFDM_EVA_{ESTIMATOR_NAMES[eq]}_lte_64_Gray.csv"
+        lines.append(baseline_curve(
+            tpk, ["--channel", "EVA", "--opt", str(eq)], (1,), csv,
+            f"EVA {ESTIMATOR_NAMES[eq]}",
+            batches + (len(BASE_SNRS) if eq == 10 else 0)))
+    lines.append(baseline_curve(
+        tpk, ["--channel", "AWGN", "--opt", "1"], (1, 2, 3, 4),
+        "BER_OFDM_AWGN_Perfect_lte_64_Gray.csv", "AWGN Perfect", 0))
+    for per_sample in (False, True):
+        lines.append(baseline_curve(
+            tpk, ["--channel", "EVA", "--opt", "10", "--mobile", "True",
+                  "--per_sample", str(per_sample)], (1,),
+            "BER_OFDM_EVA_LMMSE-Fast_lte_64_Gray_mobile.csv",
+            "EVA mobile LMMSE-Fast" + (" per-sample" if per_sample else ""),
+            0, "_persample" if per_sample else ""))
+    total = sum(ln["seconds"] for ln in lines)
+    print(smi, flush=True)
+    for ln in lines:
+        log(f"  {ln['curve']:32s} {ln['seconds']:7.2f} s "
+            f"{ln['frames_per_s']:10.0f} frames/s")
+    log(f"classical benchmark: {len(lines)} curves in {total:.1f} s ({smi})")
+    return {"launches": sum(ln["fir_shift_accum_launches"] for ln in lines),
+            "seconds": total}
+
+
+def phase_profile_baseline(dev, batches: int = 3) -> None:
+    """Phase 23, profiled (with the profiled phases at the end): one
+    2,000-frame LS-Quadeer batch on EVA at 10 dB (`classical_rx.one_batch`)
+    `batches` times under `torch.profiler` after a warm-up: wall and busy
+    ms a batch, its idle share, kernels a batch, the host's waits on the
+    card, the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dl_ofdm_tpu_torch.baselines import classical_rx as crx
+    from dl_ofdm_tpu_torch.baselines.matlab_link import MatlabLink
+    from dl_ofdm_tpu_torch.config import OFDMConfig
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    plan = build_plan(OFDMConfig())
+    link = MatlabLink(plan, 2, "EVA", device=dev)
+    ctx = crx.get_context(plan, "EVA", dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def batch():
+        return crx.one_batch(link, ctx, 5, None, 10.0, 1.0, BASE_BATCH, gen)
+
+    with crx.full_float32():
+        batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(batches):
+            batch()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / batches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(batches):
+                batch()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / batches
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    busy = busy_us(kernels) / 1e3 / batches
+    host = {n: sum(e.name == n for e in events) / batches
+            for n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpyAsync")}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    line = {"phase": 23, "part": "profiled LS-Quadeer batch",
+            "frames": BASE_BATCH, "ms_per_batch": ms,
+            "profiled_wall_ms_per_batch": wall_ms, "busy_ms_per_batch": busy,
+            "idle_share": 1 - busy / ms,
+            "kernels_per_batch": len(kernels) / batches,
+            "host_calls_per_batch": host,
+            "top_kernels_us_per_batch": [[n[:80], us / batches]
+                                         for n, us in top]}
+    print(json.dumps(line), flush=True)
+    log(f"LS-Quadeer batch ({BASE_BATCH} frames): {ms:.3f} ms, "
+        f"{busy:.3f} busy, idle {1 - busy / ms:.3f}; "
+        f"{len(kernels) / batches:.0f} kernels, host {host} a batch")
+    for n, us in top:
+        log(f"  {us / batches / 1e3:8.4f} ms  {n[:90]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2950,10 +3234,15 @@ def main() -> None:
     big = phase_serve_big512(tpk, dev)
     cli_run = phase_cli_big512(tpk, tfs, tfm, dev)
 
-    # -- 17-18, 21. the profiled phases --------------------------------------
+    # -- 23. the classical baselines ------------------------------------------
+    baseline = phase_baselines(tpk, dev, smi)
+    base_fir = phase_baseline_fir(tpk, dev, hbm_bps, f32_flops)
+
+    # -- 17-18, 21, 23. the profiled phases -----------------------------------
     phase_profile_eq(dev)
     phase_model_breakdown(tfm, dev)
     phase_profile_big512(dev)
+    phase_profile_baseline(dev)
     static = {f"static_{k}": v for k, v in synth["line"].items()
               if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels += [
@@ -2979,12 +3268,17 @@ def main() -> None:
          "launches": (launches_serve["fir_shift_accum"]
                       + launches_eq["fir_shift_accum"]
                       + launches_mesh["fir_shift_accum"]
-                      + ring["fir_launches"]),
+                      + ring["fir_launches"] + baseline["launches"]),
          "launches_serving": launches_serve["fir_shift_accum"],
          "launches_training": launches_eq["fir_shift_accum"],
          "launches_dp_training": launches_mesh["fir_shift_accum"],
          "launches_halo": ring["fir_launches"],
-         **fir_line},
+         "launches_baseline": baseline["launches"],
+         **fir_line,
+         **{f"baseline_shape_{k}": base_fir["baseline"][k] for k in (
+             "rows", "outputs", "taps", "kernel_ms", "plain_ms",
+             "conv1d_ms", "bound_ms", "bound_by", "max_abs_err")},
+         "graph_ms_phase13_shape": base_fir["phase 13"]["kernel_ms"]},
         {"name": "ring_exchange", "route": "cuda",
          "source": "dl_ofdm_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "dl_ofdm_tpu/parallel/halo.py:62",

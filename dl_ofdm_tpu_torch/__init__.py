@@ -24,9 +24,13 @@ and the sweeps, and the sequence-parallel halo FIR, whose ring exchange
 runs on `csrc/ring_exchange.cu`; the bf16 receiver (`compute_dtype`,
 through `complex_dense`'s bf16 mode); and the entry points: `cli.py`,
 `runner.py`, the checkpoints and resume payloads of `train/checkpoint.py`
-and `utils/` (`timing`, `observability`).  `utils/cache.py` (JAX's
-persistent compilation cache) has no counterpart: PyTorch runs eagerly,
-and `ops/cuda_build.py` builds each kernel once per source.
+and `utils/` (`timing`, `observability`); the classical-receiver
+baselines (`baselines/`: the MATLAB-parity link, estimators 1-10, the
+CLI's `baseline`), whose static channel runs on `fir_shift_accum`; and
+the rest of `eval/` (the `.mat` waveform interop, plots).
+`utils/cache.py` (JAX's persistent compilation cache) has no counterpart:
+PyTorch runs eagerly, and `ops/cuda_build.py` builds each kernel once per
+source.
 """
 from __future__ import annotations
 

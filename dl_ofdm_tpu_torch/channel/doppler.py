@@ -15,6 +15,7 @@ broadcast cos-sum.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,11 +34,17 @@ def jakes_bases(n_taps: int) -> tuple[np.ndarray, np.ndarray]:
             np.cos(n_vec - alpha_re).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _jakes_bases_on(n_taps: int, device: torch.device):
+    """`jakes_bases` on `device`, copied there once (a copy from the host
+    waits for the card)."""
+    return tuple(torch.from_numpy(b).to(device) for b in jakes_bases(n_taps))
+
+
 def jakes_frequencies(fd: torch.Tensor, n_taps: int):
     """Per-(sinusoid, tap) Doppler frequencies: fd [...] (Hz) ->
     (f_re, f_im) [..., SS, n_taps]."""
-    base_re, base_im = (torch.from_numpy(b).to(fd.device)
-                        for b in jakes_bases(n_taps))
+    base_re, base_im = _jakes_bases_on(n_taps, fd.device)
     fd = fd[..., None, None]
     return fd * base_re, fd * base_im
 

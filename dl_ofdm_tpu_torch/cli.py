@@ -6,7 +6,7 @@ Port of `dl_ofdm_tpu/cli.py` (flag parity with the reference programs,
   python -m dl_ofdm_tpu_torch.cli train      ... (ofdmreceiver_np.py)
   python -m dl_ofdm_tpu_torch.cli equalizer  ... (ofdmreceiver_np_mp.py)
   python -m dl_ofdm_tpu_torch.cli sweep      ... (run_local_ofdm.py)
-  python -m dl_ofdm_tpu_torch.cli baseline   ... (not ported: raises)
+  python -m dl_ofdm_tpu_torch.cli baseline   ... (OFDM_Benchmark_dev.m)
 
 The flags and defaults are the JAX CLI's (`cli.py:23-57`); booleans take
 True/False strings the same way.  One flag is the port's own: `--device`
@@ -162,10 +162,17 @@ def cmd_equalizer(args):
 
 
 def cmd_baseline(args):
-    """Classical estimator benchmark (OFDM_Benchmark_dev.m parity)."""
-    raise NotImplementedError(
-        "the classical baselines are not ported yet: ROADMAP.md Queue A "
-        "item 8 (run `python -m dl_ofdm_tpu.cli baseline` meanwhile)")
+    """Classical estimator benchmark (OFDM_Benchmark_dev.m parity,
+    `dl_ofdm_tpu/cli.py:154-163`): the MATLAB-schema CSVs of estimator
+    `--opt` (1 when 0) in `--save_dir`."""
+    from dl_ofdm_tpu_torch.baselines.classical_rx import run_benchmark
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+
+    cfg, _ = _configs(args)
+    run_benchmark(build_plan(cfg), args.channel, args.opt or 1,
+                  longcp=args.longcp, mobile=args.mobile,
+                  n_frames=args.frames, save_dir=args.save_dir,
+                  per_sample=args.per_sample, device=args.device)
 
 
 def cmd_sweep(args):

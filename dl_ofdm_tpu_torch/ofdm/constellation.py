@@ -4,6 +4,8 @@ Port of `dl_ofdm_tpu/ofdm/constellation.py`: the same non-unit-power Gray
 maps (reference `dev/py/ofdm.py:24-78`) and the same big-endian bit order
 (`np.packbits` parity, `dev/py/ofdm.py:293-298`).  Symbols are IQ-last
 `[..., 2]` float32 pairs rather than complex64, as everywhere in the port.
+The classical baselines' MATLAB `qammod(..., 'gray')` tables and their
+nearest-point demapper are here too (`constellation.py:82-113`).
 """
 from __future__ import annotations
 
@@ -72,3 +74,42 @@ def bits_from_indices(idx: torch.Tensor, nbits: int) -> torch.Tensor:
 def bits_to_symbols(bits: torch.Tensor) -> torch.Tensor:
     """Map [..., nbits] bits to IQ symbols [..., 2] via the reference LUT."""
     return const_table_iq(bits.shape[-1], bits.device)[indices_from_bits(bits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _matlab_table_np(m: int) -> np.ndarray:
+    """MATLAB `qammod(0:M-1, M, 'gray')` constellation (M in {2,4,8,16}),
+    complex64.
+
+    Equals the reference Python table with the per-symbol bit order reversed
+    and without power scaling (BPSK +-1, 8QAM unscaled rectangle)."""
+    nbits = int(np.log2(m))
+    ref = _table_np(nbits)
+    if nbits == 1:
+        ref = ref / _BPSK_AMP
+    elif nbits == 2:
+        ref = ref / 3.0
+    elif nbits == 3:
+        ref = ref / _8QAM_SCALE
+    out = np.empty_like(ref)
+    for k in range(m):
+        rev = int(f"{k:0{nbits}b}"[::-1], 2)
+        out[k] = ref[rev]
+    return out
+
+
+def matlab_gray_table(m: int, device=None) -> torch.Tensor:
+    """The MATLAB Gray table of M points as IQ pairs [M, 2] float32."""
+    t = _matlab_table_np(m)
+    return torch.tensor(np.stack([t.real, t.imag], -1), dtype=torch.float32,
+                        device=device)
+
+
+def demod_nearest(symbols: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Min-distance hard demapping (`qamdemod`,
+    `dev/m/OFDM_Benchmark_dev.m:447`): IQ symbols [..., 2] and a table
+    [M, 2] -> [...] int64 indices of the nearest points (the first on a
+    tie)."""
+    d2 = ((symbols[..., None, 0] - table[:, 0]) ** 2
+          + (symbols[..., None, 1] - table[:, 1]) ** 2)
+    return torch.argmin(d2, dim=-1)

@@ -1,7 +1,7 @@
 """The port's entry points against the JAX package's: the CLI's parser
 (`dl_ofdm_tpu/cli.py:23-57`), a tiny train -> `--test` round and the
 equalizer command on the CPU (`--device cpu`, the JAX skill's budgets),
-`baseline` refusing, `run_sweep`'s skip-if-CSV-exists resume
+`baseline` writing JAX's CSV, `run_sweep`'s skip-if-CSV-exists resume
 (`tests/test_orchestration.py:91`), `dump_constellation`'s bytes,
 `Throughput` and `bench_steps`.
 
@@ -119,12 +119,27 @@ def test_train_then_test_round_on_cpu(tmp_path, monkeypatch, few_frames,
     cli.main(["equalizer", "--test", "True"] + eq)
 
 
-def test_baseline_raises_and_cuda_is_the_default():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        cli.main(["baseline", "--device", "cpu"])
+def test_baseline_writes_jax_csv_and_cuda_is_the_default(tmp_path, capsys):
+    """`baseline` (Queue A item 8) runs JAX's command on `--device`: the
+    default channel (AWGN) and estimator (`--opt 0`: Perfect) write the
+    committed CSV's name, its SER twin and `.mat`, all four modulations
+    swept; without `--device cpu` and with no card it raises."""
+    cli.main(["baseline", "--device", "cpu", "--frames", "8", "--save_dir",
+              str(tmp_path)])
+    name = "BER_OFDM_AWGN_Perfect_lte_64_Gray"
+    assert os.path.isfile(os.path.join(ROOT, "runs", name + ".csv"))
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [name + ".csv", name + ".mat", "SER" + name[3:] + ".csv"])
+    table = np.loadtxt(tmp_path / (name + ".csv"), delimiter=",")
+    assert table.shape == (5, 9)
+    assert np.array_equal(table[0], np.arange(-10, 31, 5))
+    assert np.all((table[1:, 0] > 0.1) & (table[1:, 0] < 0.5))
+    assert "AWGN/Perfect M=16 SNR=30" in capsys.readouterr().out
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            cli.main(["train"] + TINY)
+        for cmd in (["baseline", "--save_dir", str(tmp_path)],
+                    ["train"] + TINY):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                cli.main(cmd)
 
 
 def test_module_entry_point_runs():

@@ -715,3 +715,63 @@ def test_complex_dense_bf16_tensor_core_kernel(cuda, m, k, f):
     torch.testing.assert_close(
         y, tpk.complex_dense_ref(x, wr, wi, "bfloat16"), atol=1e-5,
         rtol=1e-5)
+
+
+def _baseline_draws(link, b: int, seed: int) -> dict:
+    """One batch's draws of `MatlabLink` on EVA (static), made on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    plan = link.plan
+    return {"sym_idx": torch.randint(0, link.m, (b, plan.frame_size),
+                                     generator=g),
+            "z": torch.randn(b, link.profile.n_taps, 2, generator=g) / 2**0.5,
+            "unit_noise": torch.randn(b, plan.nsymbol,
+                                      plan.samples_per_symbol, 2,
+                                      generator=g)}
+
+
+@pytest.mark.parametrize("eq_idx", [1, 5, 10])
+def test_baseline_run_point_on_card_matches_cpu(cuda, eq_idx):
+    """`run_point` on the card against the CPU on the same draws: one
+    `fir_shift_accum` launch a batch (and one for id 10's ensemble), bit
+    errors within 1 per 10,000 bits (id 5: within 5, the first
+    symbol's ill-conditioned solve; see tests/test_torch_baselines.py)."""
+    from dl_ofdm_tpu_torch.baselines import classical_rx as crx
+    from dl_ofdm_tpu_torch.baselines.matlab_link import MatlabLink
+    from dl_ofdm_tpu_torch.config import OFDMConfig
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    plan = build_plan(OFDMConfig())
+    n, batch = 1024, 512
+    draws = [_baseline_draws(MatlabLink(plan, 2, "EVA"), batch, i)
+             for i in range(3)]
+    draws = draws if eq_idx == 10 else draws[1:]
+    out = {}
+    for dev in ("cpu", cuda):
+        link = MatlabLink(plan, 2, "EVA", device=dev)
+        ctx = crx.get_context(plan, "EVA", dev)
+        torch.cuda.synchronize()
+        before = tpk.fir_shift_accum_kernel.launches
+        moved = ({k: v.to(dev) for k, v in d.items()} for d in draws)
+        out[str(dev)] = crx.run_point(link, ctx, eq_idx, None, 20.0, n,
+                                      batch=batch, draws=moved)
+        torch.cuda.synchronize()
+        launches = tpk.fir_shift_accum_kernel.launches - before
+        assert launches == (0 if dev == "cpu" else len(draws))
+    bits = n * plan.frame_size
+    per = 5 if eq_idx == 5 else 1
+    (ber_c, ser_c), (ber_g, ser_g) = out["cpu"], out[str(cuda)]
+    assert abs(ber_c - ber_g) * bits <= max(1, per * bits / 10000)
+    assert abs(ser_c - ser_g) * bits <= max(1, per * bits / 10000)
+
+
+@pytest.mark.parametrize("b,n", [(2000, 16), (7, 64)])
+def test_solve_iq_on_card_matches_cpu(cuda, b, n):
+    from dl_ofdm_tpu_torch.ops import cfloat
+    g = torch.Generator().manual_seed(n)
+    a = torch.randn(b, n, n, 2, generator=g)
+    a[..., 0] += n * torch.eye(n)
+    rhs = torch.randn(b, n, 2, generator=g)
+    want = cfloat.solve_iq(a, rhs)
+    got = cfloat.solve_iq(a.to(cuda), rhs.to(cuda))
+    torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())

@@ -42,11 +42,16 @@ def test_port_files_found():
     "channel/fir.py", "models/equalizers.py", "models/receiver.py",
     "train/transfer.py", "train/curriculum.py", "train/equalizer_loop.py",
     "eval/sweep.py", "cli.py", "runner.py", "train/checkpoint.py",
-    "utils/__init__.py", "utils/timing.py", "utils/observability.py"])
+    "utils/__init__.py", "utils/timing.py", "utils/observability.py",
+    "baselines/__init__.py", "baselines/pdp.py", "baselines/interp.py",
+    "baselines/cp_enhanced.py", "baselines/matlab_link.py",
+    "baselines/estimators.py", "baselines/classical_rx.py",
+    "eval/mat_export.py", "eval/mat_eval.py", "eval/plots.py"])
 def test_equalizer_stage_modules_are_scanned(module):
-    """The equalizer stage's modules and the entry points (CLI, runner,
-    checkpoints, utils) are among the files the import scan reads, and
-    import without JAX's modules being reached."""
+    """The equalizer stage's modules, the entry points (CLI, runner,
+    checkpoints, utils), the classical baselines and the rest of eval are
+    among the files the import scan reads, and import without JAX's
+    modules being reached."""
     path = os.path.join(ROOT, "dl_ofdm_tpu_torch", module)
     assert path in PORT_FILES
     import importlib

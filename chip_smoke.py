@@ -213,19 +213,51 @@ Phases, each printed with its elapsed seconds:
     bound.  Profiled with the profiled phases at the end: one 2,000-frame
     LS-Quadeer batch (ms, busy ms, idle share, kernels and host waits a
     batch, top kernels).
+24. the ablation and legacy paths: a. every function of the port's
+    ablation and legacy modules (PAPR clipping, the three AWGN variants,
+    the complex FFT FIRs, both legacy channels, both legacy transmitters,
+    `DNNReceiver`, the four e2e blocks) on the card against itself on the
+    CPU on the same inputs and draws (1e-5 of the largest value, 1e-4 for
+    the FFT variants); both legacy channels at 30,000 x 7 x 80 samples
+    (ETU: 6 taps at 0.96 MHz, 51 at 10 MHz), one `fir_shift_accum` launch
+    a call, the FIR bit-equal to the plain version, the kernel and the
+    whole call timed from CUDA graphs beside the plain version, one
+    grouped `F.conv1d` and the bound; b. the DNN ablation at full width
+    (`runs/run_experiments15.py:212-231`, cut to 20 epochs): its mean
+    val_ber of epochs 15-19 within [0.5, 2.0] of the JAX trace's
+    (`runs/p15_dnn_trace.json`), ms a step and launches a step.
+25. tensor parallelism, on virtual ranks of card 0 (one rank a card with
+    four cards): a. JAX's tp configuration (nfft 1,024, nfilter 1,024,
+    ETU, float32) on dp 2 x tp 2 at 64 frames: `Dense_extract.weight`
+    split on its in axis, gradients within rtol 2e-4 / atol 1e-6 of the
+    single-device ones, three steps, `complex_dense` one launch a rank a
+    step, ms a step against single-device at 64 and 256 frames, the
+    kernel at a rank's shape; b. the nfft-512 bf16 arm on dp 1 x tp 2:
+    gradients within 1e-2 of each leaf's max, the pack and the bf16 GEMM
+    at N = 256 (each call within 1e-5 of `complex_dense_ref`), their
+    times, then a 3-point `ber_sweep` (4,000 frames a point) on dp 2 x
+    tp 2 bit-identical to dp 2; c. the opt-12 arm in `EqualizerTrainer`
+    on dp 1 x tp 2: the tp gradients' worst error against float64 ones
+    (the same trainer on the CPU) within twice the single-device float32
+    gradients', the receiver frozen; d. a resumed fit on dp 2 x tp 2 at
+    nfft 256 (2 + 2 epochs against 4) bit-identical.
  5. (printed last) one `{"kernels": [...]}` line with all seven kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
     its bf16 mode's GEMM from phases 21 and 22 beside phase 20's
     numbers), of `pack_stacked_weight` from phases 21 and 22, of
     `philox_probe` from phase 12, of `fir_shift_accum` from phases 14, 15
-    and 19 and 23 (with the baseline shape's numbers), of `ring_exchange`
-    from phase 19c), then as the last line
+    and 19 and 23 (with the baseline shape's numbers) and 24a
+    (`launches_legacy`, with the legacy shapes' numbers), of
+    `ring_exchange` from phase 19c; `complex_dense` and
+    `pack_stacked_weight` with `launches_tp` from phases 25a-b and the tp
+    shapes' numbers), then as the last line
     `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
 """
+import copy
 import json
 import os
 import subprocess
@@ -2603,10 +2635,15 @@ def states_equal(a, b) -> list:
     bad = [n for n, x, y in (("step", a.step, b.step),
                              ("count", a.opt_state["count"],
                               b.opt_state["count"])) if x != y]
+    def same(u, v):       # a tensor, or a tp mesh's list of shards
+        if isinstance(u, list):
+            return len(u) == len(v) and all(map(torch.equal, u, v))
+        return torch.equal(u, v)
+
     for part, x, y in (("params", a.params, b.params),
                        ("mu", a.opt_state["mu"], b.opt_state["mu"]),
                        ("nu", a.opt_state["nu"], b.opt_state["nu"])):
-        bad += [f"{part}:{k}" for k in x if not torch.equal(x[k], y[k])]
+        bad += [f"{part}:{k}" for k in x if not same(x[k], y[k])]
     return bad
 
 
@@ -3017,6 +3054,670 @@ def phase_profile_baseline(dev, batches: int = 3) -> None:
         log(f"  {us / batches / 1e3:8.4f} ms  {n[:90]}")
 
 
+# -- 24: the ablation and legacy paths ----------------------------------------
+LEGACY_ROWS = 30000                 # frames of the legacy channels (x 7 x 80)
+# (function, profile, sample rate): 6 taps at 0.96 MHz, 51 at 10 MHz
+LEGACY_FIRS = (("rayleigh_channel_legacy", "ETU", 0.96e6),
+               ("rayleigh_channel_batch_coherent", "ETU", 1e7))
+# the DNN ablation (`runs/run_experiments15.py:212-231`), cut to 20 epochs:
+# its epochs 15-19 mean val_ber against the JAX trace's
+# (`runs/p15_dnn_trace.json`, 0.006537), in distribution (the PRNG streams
+# differ): within DNN_BAND of it
+DNN_EPOCHS = 20
+DNN_TRACE = os.path.join(ROOT, "runs", "p15_dnn_trace.json")
+DNN_BAND = (0.5, 2.0)
+
+
+def same_as_cpu(name, fn, args, tol, **kw):
+    """`fn` on the card against `fn` on the CPU on the same inputs (moved
+    there): every output within `tol` of the largest CPU value (absolute
+    below 1).  Returns the largest difference."""
+    import torch
+
+    def on(dev, a):
+        return a.to(dev) if isinstance(a, torch.Tensor) else a
+
+    def leaves(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [o for o in out if isinstance(o, torch.Tensor)]
+
+    got = leaves(fn(*args, **kw))
+    want = leaves(fn(*[on("cpu", a) for a in args],
+                     **{k: on("cpu", v) for k, v in kw.items()}))
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = torch.view_as_real(g) if g.is_complex() else g
+        w = torch.view_as_real(w) if w.is_complex() else w
+        diff = float((g.cpu().double() - w.double()).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        if not diff <= tol * scale:
+            raise AssertionError(f"{name}: card differs from CPU by "
+                                 f"{diff:.3g} > {tol} x {scale:.3g}")
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_legacy_cpu_parity(dev) -> dict:
+    """Phase 24a, first part: every Part-A function of the ablation and
+    legacy paths on the card against itself on the CPU, on the same
+    inputs and injected draws: float32 paths within 1e-5 (1e-4 for the
+    FFT variants) of the largest value."""
+    import torch
+    from dl_ofdm_tpu_torch.channel import awgn, fir, legacy
+    from dl_ofdm_tpu_torch.config import OFDMConfig
+    from dl_ofdm_tpu_torch.models import dccn, e2e_blocks
+    from dl_ofdm_tpu_torch.ofdm import legacy_tx, papr
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def rn(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    def cplx(*shape):
+        return torch.complex(rn(*shape), rn(*shape))
+
+    errs = {}
+    x = rn(64, 7, 80, 2)
+    snr = torch.rand(64, device=dev, generator=g) * 20
+    errs["clip_papr"] = same_as_cpu("clip_papr", papr.clip_papr,
+                                    (cplx(8, 560),), 1e-5)
+    errs["clip_papr_iq"] = same_as_cpu("clip_papr_iq", papr.clip_papr_iq,
+                                       (x,), 1e-5, peak=1.5)
+    errs["awgn_channel_phase"] = same_as_cpu(
+        "awgn_channel_phase", awgn.awgn_channel_phase, (x, snr), 1e-5,
+        unit_amp=rn(64, 7, 80, 1),
+        phase=torch.rand(64, 7, 80, 1, device=dev, generator=g) * 6.283)
+    for norm in (True, False):
+        errs[f"awgn_channel_norm_{norm}"] = same_as_cpu(
+            "awgn_channel_norm", awgn.awgn_channel_norm, (x, snr), 1e-5,
+            norm=norm, unit_noise=rn(64, 7, 80, 2))
+    errs["awgn_channel_complex"] = same_as_cpu(
+        "awgn_channel_complex", awgn.awgn_channel_complex,
+        (cplx(64, 7, 80), snr), 1e-5, unit_noise=cplx(64, 7, 80))
+    errs["fir_same_batched"] = same_as_cpu(
+        "fir_same_batched", fir.fir_same_batched, (cplx(64, 560),
+                                                   cplx(64, 13), 6), 1e-4)
+    errs["fir_same_varlen"] = same_as_cpu(
+        "fir_same_varlen", fir.fir_same_varlen,
+        (cplx(64, 560), cplx(64, 13),
+         torch.randint(0, 7, (64,), device=dev, generator=g)), 1e-4)
+    errs["fir_per_symbol"] = same_as_cpu(
+        "fir_per_symbol", fir.fir_per_symbol,
+        (cplx(64, 7, 80), cplx(64, 7, 11), 20,
+         torch.randint(0, 6, (64,), device=dev, generator=g)), 1e-4)
+    for chan, rate in (("ETU", 0.96e6), ("EVA", 1e7)):
+        n_fir = len(legacy.legacy_tap_coeff(chan, rate, 560))
+        errs[f"rayleigh_channel_legacy_{chan}"] = same_as_cpu(
+            "rayleigh_channel_legacy", legacy.rayleigh_channel_legacy,
+            (x, 64, chan, rate), 1e-5, unit_taps=rn(64, n_fir, 2))
+        errs[f"batch_coherent_{chan}"] = same_as_cpu(
+            "rayleigh_channel_batch_coherent",
+            legacy.rayleigh_channel_batch_coherent, (x, snr, chan, rate),
+            1e-5, unit_taps=rn(n_fir, 2), unit_noise=rn(64, 560, 2))
+    plan = build_plan(OFDMConfig(nbits=2))
+    bits = torch.randint(0, 2, (14, len(plan.data_carriers), 2), device=dev,
+                         generator=g, dtype=torch.int32)
+    errs["ofdm_modulate_symbol_pilots"] = same_as_cpu(
+        "ofdm_modulate_symbol_pilots", legacy_tx.ofdm_modulate_symbol_pilots,
+        (bits, plan), 1e-5)
+    lplan = legacy_tx.legacy_tx_plan(64, 8, 8)
+    bits = torch.randint(0, 2, (16, 4, len(lplan.data_carriers), 2),
+                         device=dev, generator=g, dtype=torch.int32)
+    errs["ofdm_transmitter_iq"] = same_as_cpu(
+        "ofdm_transmitter_iq", legacy_tx.ofdm_transmitter_iq,
+        (bits, 64, 8, 8), 1e-5)
+    plan = build_plan(OFDMConfig(nbits=1))
+    models = {
+        "DNNReceiver": (dccn.DNNReceiver(1, 64, plan.cp_len, 64,
+                                         plan.frame_size), x),
+        "DenseBlockTx": (e2e_blocks.DenseBlockTx(2, 3, 48, 2),
+                         torch.randint(0, 2, (64, 7, 48, 2), device=dev,
+                                       generator=g)),
+        "ConvBlockTx": (e2e_blocks.ConvBlockTx(2, 48, 7),
+                        torch.randint(0, 2, (64, 7, 48, 2), device=dev,
+                                      generator=g)),
+        "ConvBlockRx": (e2e_blocks.ConvBlockRx(2, 48, 7), rn(64, 7, 48, 2)),
+        "DenseBlockRx": (e2e_blocks.DenseBlockRx(320, 2, 48, 4),
+                         rn(64, 7, 48, 4))}
+    for name, (m, inp) in models.items():
+        m.reset_parameters(torch.Generator().manual_seed(1))
+        card = copy.deepcopy(m).to(dev)
+        with torch.no_grad():
+            got, want = card(inp), m(inp.cpu())
+        got = got[0] if isinstance(got, tuple) else got
+        want = want[0] if isinstance(want, tuple) else want
+        diff = float((got.cpu() - want).abs().max())
+        if not diff <= 1e-5 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"by {diff:.3g}")
+        errs[name] = diff
+    log(f"ablation and legacy paths: {len(errs)} card runs == CPU runs "
+        f"(largest difference {max(errs.values()):.3g})")
+    print(json.dumps({"phase": 24, "part": "card vs CPU", "max_abs_diff":
+                      errs}), flush=True)
+    return errs
+
+
+def phase_legacy_fir(tpk, dev, hbm_bps, f32_flops) -> dict:
+    """Phase 24a, second part: both legacy channels at 30,000 x 7 x 80
+    samples (ETU: 6 taps at 0.96 MHz, 51 at 10 MHz): one `fir_shift_accum`
+    launch a call, the FIR output bit-equal to the plain version on the
+    same pre-aligned planes; the whole call and the kernel alone timed
+    from CUDA graphs beside the plain version, one grouped `F.conv1d` and
+    the kernel's bound.  Returns the launches and each shape's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from dl_ofdm_tpu_torch.channel import fir, legacy
+    gen = torch.Generator(device=dev).manual_seed(241)
+    b, l_out = LEGACY_ROWS, FIR_LEN
+    x = torch.randn(b, 7, 80, 2, device=dev, generator=gen)
+    snr = torch.full((b,), 10.0, device=dev)
+    out = {"launches": 0, "shapes": {}}
+    for fname, chan, rate in LEGACY_FIRS:
+        coeff = torch.from_numpy(legacy.legacy_tap_coeff(chan, rate,
+                                                         l_out)).to(dev)
+        f = coeff.shape[0]
+        if fname == "rayleigh_channel_legacy":
+            taps = torch.randn(b, f, 2, device=dev, generator=gen)
+            h = taps / 2 ** 0.5 * coeff[None, :, None]
+            off = (f - 1) // 2
+
+            def call():
+                return legacy.rayleigh_channel_legacy(
+                    x, 64, chan, rate, unit_taps=taps)[0]
+        else:
+            taps = torch.randn(f, 2, device=dev, generator=gen)
+            zero = torch.zeros(b, l_out, 2, device=dev)
+            h = torch.flip(taps / 2 ** 0.5 * coeff[:, None], (0,))[None] \
+                .expand(b, f, 2)
+            off = f - 1 - (f - 1) // 2
+
+            def call():
+                return legacy.rayleigh_channel_batch_coherent(
+                    x, snr, chan, rate, unit_taps=taps, unit_noise=zero)[0]
+        torch.cuda.synchronize()
+        tpk.fir_shift_accum_kernel.launches = 0
+        y = call().reshape(b, l_out, 2)
+        torch.cuda.synchronize()
+        n = tpk.fir_shift_accum_kernel.launches
+        if n != 1:
+            raise AssertionError(f"{fname}: {n} fir_shift_accum launches a "
+                                 "call, want 1")
+        out["launches"] += n
+        flat = x.reshape(b, l_out, 2)
+        xa = [fir._prealign_plane(F.pad(flat[..., i], (f - 1, f - 1)),
+                                  np.full((b,), off), l_out + f - 1)
+              .contiguous() for i in (0, 1)]
+        hp = [h[..., i].contiguous() for i in (0, 1)]
+        wr, wi = tpk.fir_shift_accum_ref(*xa, *hp, l_out)
+        err = float((y - torch.stack([wr, wi], -1)).abs().max())
+        if err:
+            raise AssertionError(f"{fname}: the FIR output differs from the "
+                                 f"plain version by {err:.3g}; want "
+                                 "bit-equal")
+        lib = conv1d_fir(xa, hp)
+        runs = {"call": call,
+                "kernel": lambda: tpk.fir_shift_accum_kernel(*xa, *hp,
+                                                             l_out),
+                "plain": lambda: tpk.fir_shift_accum_ref(*xa, *hp, l_out),
+                "library": lib}
+        ms = {n_: [] for n_ in runs}
+        for n_ in ("plain", "kernel", "call", "library", "library", "call",
+                   "kernel", "plain"):
+            ms[n_].append(time_ms(runs[n_], 5 if n_ == "plain" else 50)[0])
+        ms = {n_: sum(v) / len(v) for n_, v in ms.items()}
+        n_bytes = 4 * (2 * b * (l_out + f - 1) + 2 * b * f + 2 * b * l_out)
+        flops = 8 * b * l_out * f
+        bound, by = bound_of(n_bytes, flops, hbm_bps, f32_flops)
+        line = {"phase": 24, "kernel": "fir_shift_accum", "path": fname,
+                "profile": chan, "rate_hz": rate, "rows": b,
+                "outputs": l_out, "taps": f, "launches_a_call": n,
+                "max_abs_err": err, "kernel_ms": ms["kernel"],
+                "call_ms": ms["call"], "plain_ms": ms["plain"],
+                "conv1d_ms": ms["library"], "timing": "CUDA graph",
+                "bytes": n_bytes, "flops": flops, "bound_ms": bound,
+                "bound_by": by}
+        print(json.dumps(line), flush=True)
+        log(f"{fname} ({chan}, {rate / 1e6:g} MHz, {f} taps) at {b} x "
+            f"{l_out}: one launch, FIR == plain version; kernel "
+            f"{ms['kernel']:.4f} ms, whole call {ms['call']:.4f} ms, plain "
+            f"{ms['plain']:.4f}, grouped conv1d {ms['library']:.4f}, bound "
+            f"{bound:.4f} ms ({by})")
+        out["shapes"][f"{b}x{l_out}x{f}"] = line
+    return out
+
+
+def phase_dnn_ablation(tpk, tfs, dev) -> dict:
+    """Phase 24b: the DNN ablation at full width (the recipe of
+    `runs/run_experiments15.py:212-231`: `DNNReceiver`, nbits 1, AWGN,
+    5 dB, batch_size 512, `fit` with batch growth), cut to `DNN_EPOCHS`
+    epochs; the mean val_ber of epochs 15-19 within `DNN_BAND` of the JAX
+    trace's; ms a step and the port's kernel launches a step."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.models.dccn import DNNReceiver
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg = OFDMConfig(nbits=1)
+    plan = build_plan(cfg)
+    tc = TrainConfig(snr=5.0, batch_size=512, max_epoch_num=DNN_EPOCHS,
+                     early_stop=100, token="OFDM_DNN_1mod_snr5_cpTrue")
+    tr = Trainer(cfg, tc, channel="AWGN", model=DNNReceiver(
+        nbits=1, nfft=cfg.nfft, cp_len=plan.cp_len, nfilter=cfg.nfilter,
+        frame_size=plan.frame_size))
+    if tr._use_fused_model or not tr._use_fused_synth:
+        raise AssertionError("the DNN trainer must take the autograd route "
+                             "on the synth kernel's data plane")
+    zero_counts(tpk, tfs)
+    t = time.time()
+    _, info = tr.fit(log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = path_counts(tpk, tfs)
+    hist = info["history"]
+    with open(DNN_TRACE) as fh:
+        ref = json.load(fh)["history"]
+    ours = float(np.mean([h["val_ber"] for h in hist[15:20]]))
+    theirs = float(np.mean([h["val_ber"] for h in ref[15:20]]))
+    ratio = ours / theirs
+    gen = torch.Generator(device=dev).manual_seed(242)
+    state = tr.init_state(gen)
+    snr = torch.full((tr.batch_frames,), 5.0, device=dev)
+    state, _ = tr.train_step(state, gen, snr)
+    zero_counts(tpk, tfs)
+    t = time.perf_counter()
+    for _ in range(50):
+        state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / 50
+    per_step = {k: v / 50 for k, v in path_counts(tpk, tfs).items()}
+    line = {"phase": 24, "part": "DNN ablation", "epochs": len(hist),
+            "cut": f"{DNN_EPOCHS} of 300 epochs", "fit_seconds": wall,
+            "batch_frames_end": tr.batch_frames,
+            "fit_launches": counts,
+            "val_ber": [h["val_ber"] for h in hist],
+            "val_ber_15_19": ours, "jax_val_ber_15_19": theirs,
+            "ratio": ratio, "band": DNN_BAND, "ms_per_step": ms,
+            "step_frames": tr.batch_frames,
+            "kernel_launches_per_step": per_step}
+    print(json.dumps(line), flush=True)
+    log(f"DNN ablation: {len(hist)} epochs in {wall:.1f} s; val_ber of "
+        f"epochs 15-19 {ours:.6f} against JAX's {theirs:.6f} (ratio "
+        f"{ratio:.3f}, band {DNN_BAND}); {ms:.3f} ms a step at "
+        f"{tr.batch_frames} frames, launches a step {per_step}")
+    if not DNN_BAND[0] <= ratio <= DNN_BAND[1]:
+        raise AssertionError(f"DNN ablation val_ber {ours:.6f} is "
+                             f"{ratio:.3f}x JAX's, outside {DNN_BAND}")
+    return line
+
+
+# -- 25: tensor parallelism on the card ---------------------------------------
+TP_DP, TP_TP = 2, 2
+TP_FRAMES = (64, 256)               # frames a step timed (phase 25a)
+TP_STEPS = 5                        # timed steps a size
+TP_EQ_ARM = os.path.join(ROOT, "runs", "arms",
+                         "OFDM_Dense3_2mod_snr10_cpTrue_Equalizer12_"
+                         "mixRayleigh.npz")
+TP_SWEEP_SNRS = (0, 5, 10)
+
+
+def tp_mesh(dev, dp: int, tp: int):
+    """A [dp, tp] mesh: one rank a card where the machine has dp * tp cards
+    (four: the four-card call), else virtual ranks of card 0."""
+    import torch
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    n = dp * tp
+    devs = (list(range(n)) if torch.cuda.device_count() >= n and n > 1
+            else [dev] * n)
+    return make_mesh(devs, dp=dp, tp=tp)
+
+
+def mesh_grads(tr, state, bits, rx):
+    """The mesh step's gradients (split leaves gathered) on one batch
+    sharded over the mesh's dp rows."""
+    import torch
+    from dl_ofdm_tpu_torch.parallel.mesh import shard_batch
+    tb, tx = shard_batch(tr.mesh, (bits, rx))
+    _, aux = tr._mesh_step(state, tb, tx, [{}] * len(tb),
+                           torch.tensor(0.0, device=tr.device),
+                           return_grads=True)
+    return tr._gathered(aux["grads"])
+
+
+def single_grads(tr, params, bits, rx, keys=None):
+    """Single-device autograd gradients of `tr._loss_fn` over `keys`."""
+    import torch
+    keys = list(params) if keys is None else keys
+    train = {k: params[k].detach().clone().requires_grad_() for k in keys}
+    loss, _ = tr._loss_fn({**params, **train}, bits, rx)
+    return dict(zip(train, torch.autograd.grad(loss, list(train.values()))))
+
+
+def close_grads(name, got, want, rtol, atol) -> float:
+    """Every leaf within rtol x |want| + atol; returns the largest
+    difference relative to its leaf's largest value."""
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].to(w.device) - w).abs()
+        if bool((d > rtol * w.abs() + atol).any()):
+            raise AssertionError(
+                f"{name}: {k} differs by up to {float(d.max()):.3g} "
+                f"(rtol {rtol}, atol {atol}; max |g| "
+                f"{float(w.abs().max()):.3g})")
+        worst = max(worst, float(d.max() / w.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def step_ms(tr, frames: int, gen, steps: int = TP_STEPS) -> float:
+    """ms a training step at `frames` frames (one warm-up step first)."""
+    import torch
+    tr.batch_frames = tr._round_to_dp(frames)
+    state = tr.init_state(gen)
+    snr = torch.full((tr.batch_frames,), 5.0, device=tr.device)
+    state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize()
+    if not torch.isfinite(aux["loss"]):
+        raise AssertionError(f"step loss {float(aux['loss'])}")
+    return (time.perf_counter() - t) * 1e3 / steps
+
+
+def cdense_tp_times(tpk, x, wr, wi, mode, hbm_bps, peak_key):
+    """`complex_dense` at one tp rank's shape: kernel (CUDA graph) beside
+    the plain version and one library call (complex64 matmul in float32,
+    one bf16 cuBLAS GEMM in bf16), and the bound; the kernel's output
+    against the plain version at atol = rtol = 1e-5."""
+    import torch
+    m, k = x.shape[0], x.shape[1]
+    f = wr.shape[1]
+    with torch.no_grad():
+        y = tpk.complex_dense_kernel(x, wr, wi, mode)
+        torch.testing.assert_close(y, tpk.complex_dense_ref(x, wr, wi, mode),
+                                   atol=1e-5, rtol=1e-5)
+        if mode is None:
+            xc, wc = torch.view_as_complex(x), torch.complex(wr, wi)
+            lib = lambda: torch.matmul(xc, wc)          # noqa: E731
+        else:
+            lib, _ = bf16_library_gemm(x, wr, wi)
+        runs = {"kernel": lambda: tpk.complex_dense_kernel(x, wr, wi, mode),
+                "plain": lambda: tpk.complex_dense_ref(x, wr, wi, mode),
+                "library": lib}
+        ms = {n: [] for n in runs}
+        for n in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+            ms[n].append(time_ms(runs[n], 50)[0])
+    ms = {n: sum(v) / len(v) for n, v in ms.items()}
+    n_bytes = 4 * (2 * m * k + 2 * m * f) + (2 if mode else 4) * 2 * k * f
+    flops = 8 * m * k * f
+    if mode is None:
+        _, (_, f32) = card_peaks(peak_key)
+        bound, by = bound_of(n_bytes, flops, hbm_bps, f32)
+    else:
+        bound = max(n_bytes / hbm_bps, flops / 989e12) * 1e3
+        by = "bytes" if n_bytes / hbm_bps > flops / 989e12 else "operations"
+    return {"shape": [m, k, f], "mode": mode or "float32",
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": bound, "bound_by": by}
+
+
+def phase_tp_big(tpk, dev, hbm_bps, peak_key) -> dict:
+    """Phase 25a: JAX's own tp configuration (`__graft_entry__.py:142-158`:
+    nfft 1,024, nfilter 1,024, nbits 1, ETU, 5 dB, float32) on dp 2 x tp 2
+    at 64 frames a step: `Dense_extract.weight` split on its in axis; the
+    gradients on fixed data against the single-device ones (rtol 2e-4,
+    atol 1e-6); three steps with a finite loss; `complex_dense` launches
+    a step as the plan predicts (one a rank, forward only: the backward is
+    plain matmuls); ms a step against the single-device step at 64 and
+    256 frames."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    mesh = tp_mesh(dev, TP_DP, TP_TP)
+    cfg = OFDMConfig(nbits=1, nfft=1024, nfilter=1024)
+    tc = TrainConfig(snr=5.0, batch_size=7 * TP_FRAMES[0])
+    tr = Trainer(cfg, tc, channel="ETU", mesh=mesh)
+    single = Trainer(cfg, tc, channel="ETU", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    state = tr.init_state(gen)
+    w = state.params["Dense_extract.weight"]
+    shard = state.replicas[1]["Dense_extract.weight"]
+    if tuple(shard.shape) != (w.shape[0], w.shape[1] // TP_TP):
+        raise AssertionError(f"Dense_extract.weight shard {tuple(shard.shape)}"
+                             f" of {tuple(w.shape)}: not split on its in axis")
+    b = tr.batch_frames
+    snr = torch.full((b,), 5.0, device=dev)
+    bits, rx, _, _, _ = single.synthesize(b, snr, gen)
+    g_tp = mesh_grads(tr, state, bits, rx)
+    g_1d = single_grads(single, state.params, bits, rx)
+    worst = close_grads("nfft-1024 tp gradients", g_tp, g_1d, 2e-4, 1e-6)
+    torch.cuda.synchronize()
+    k_ = tpk.complex_dense_kernel
+    k_.launches = k_.launches_bf16 = 0
+    for _ in range(3):
+        state, aux = tr.train_step(state, gen, snr)
+        if not torch.isfinite(aux["loss"]):
+            raise AssertionError(f"tp step loss {float(aux['loss'])}")
+    torch.cuda.synchronize()
+    launches = k_.launches
+    want = 3 * TP_DP * TP_TP
+    if launches != want or k_.launches_bf16:
+        raise AssertionError(f"complex_dense launched {launches} (bf16 "
+                             f"{k_.launches_bf16}) times in 3 tp steps, "
+                             f"want {want}")
+    times = {}
+    for frames in TP_FRAMES:
+        for name, t_ in (("tp", tr), ("single", single), ("single", single),
+                         ("tp", tr)):
+            times.setdefault(f"{name}_{frames}", []).append(
+                step_ms(t_, frames, gen))
+    times = {k: sum(v) / len(v) for k, v in times.items()}
+    x = rx[:b // TP_DP].reshape(-1, rx.shape[2], 2).contiguous()
+    f_half = cfg.nfilter // TP_TP
+    wr = state.replicas[0]["fft_like.wr"]
+    shape = cdense_tp_times(tpk, x, wr, state.replicas[0]["fft_like.wi"],
+                            None, hbm_bps, peak_key)
+    if wr.shape[1] != f_half:
+        raise AssertionError(f"fft_like shard {tuple(wr.shape)}")
+    line = {"phase": 25, "part": "a", "config": "nfft 1024, nfilter 1024, "
+            "nbits 1, ETU, float32", "dp": TP_DP, "tp": TP_TP,
+            "ranks": [str(d) for d in mesh.rank_devices],
+            "dense_extract": list(w.shape), "dense_extract_shard":
+            list(shard.shape), "params_m": sum(v.numel() for v in
+                                               state.params.values()) / 1e6,
+            "grad_rel_err": worst, "tolerance": "rtol 2e-4, atol 1e-6",
+            "complex_dense_launches_3_steps": launches,
+            "ms_per_step": times, "complex_dense_tp_shape": shape}
+    print(json.dumps(line), flush=True)
+    log(f"nfft-1024 tp (dp {TP_DP} x tp {TP_TP}): Dense_extract "
+        f"{tuple(w.shape)} split to {tuple(shard.shape)}; gradients within "
+        f"rtol 2e-4 / atol 1e-6 of single-device (worst {worst:.3g} of a "
+        f"leaf max); complex_dense {launches} launches in 3 steps; ms a "
+        f"step {', '.join(f'{k} {v:.2f}' for k, v in times.items())}; "
+        f"complex_dense at {shape['shape']}: kernel {shape['kernel_ms']:.4f}"
+        f" ms, complex64 matmul {shape['library_ms']:.4f}, bound "
+        f"{shape['bound_ms']:.4f} ({shape['bound_by']})")
+    return {"launches": launches, "shape": shape}
+
+
+def phase_tp_big512(tpk, dev, hbm_bps, peak_key) -> dict:
+    """Phase 25b: the committed nfft-512 bf16 arm on dp 1 x tp 2: its
+    gradients within 1e-2 of each leaf's max of the single-device ones
+    (the bf16 tolerance of `tests/test_torch_bf16.py`); the pack and the
+    bf16 GEMM launched at N = 256, one each a rank, each call's output
+    against `complex_dense_ref` (atol = rtol = 1e-5, phase 20's rule);
+    then a `ber_sweep` of the arm at 0, 5 and 10 dB (4,000 frames a
+    point) on dp 2 x tp 2, bit-identical to the dp-2 mesh sweep from the
+    same generator."""
+    import torch
+    from dl_ofdm_tpu_torch.config import TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    params = {k: v.to(dev) for k, v in params_from_flax(
+        load_params_npz(BIG_ARM)).items()}
+    tc = TrainConfig(snr=5.0)
+    tr = Trainer(big512_config(), tc, channel="AWGN",
+                 mesh=tp_mesh(dev, 1, TP_TP))
+    single = Trainer(big512_config(), tc, channel="AWGN", device=dev)
+    single.model.load_state_dict(params)
+    state = tr._new_state(params, list(params))
+    gen = torch.Generator(device=dev).manual_seed(252)
+    b = tr.batch_frames
+    bits, rx, _, _, _ = single.synthesize(
+        b, torch.full((b,), 5.0, device=dev), gen)
+    k_, p_ = tpk.complex_dense_kernel, tpk.pack_stacked_weight_kernel
+    torch.cuda.synchronize()
+    k_.launches = k_.launches_bf16 = p_.launches = 0
+    g_tp = mesh_grads(tr, state, bits, rx)
+    torch.cuda.synchronize()
+    launches = {"bf16": k_.launches_bf16, "pack": p_.launches,
+                "float32": k_.launches}
+    if launches != {"bf16": TP_TP, "pack": TP_TP, "float32": 0}:
+        raise AssertionError(f"bf16 tp step: launches {launches}, want one "
+                             "pack and one GEMM a rank")
+    g_1d = single_grads(single, params, bits, rx)
+    gerr = check_grads("nfft-512 bf16 tp gradients", g_tp, g_1d, 1e-2)
+    x = rx.reshape(-1, rx.shape[2], 2).contiguous()
+    errs = []
+    for t in range(TP_TP):
+        wr = state.replicas[t]["fft_like.wr"]
+        wi = state.replicas[t]["fft_like.wi"]
+        if wr.shape[1] != 256:
+            raise AssertionError(f"rank {t}'s fft_like {tuple(wr.shape)}")
+        with torch.no_grad():
+            y = tpk.complex_dense_kernel(x, wr, wi, "bfloat16")
+            want = tpk.complex_dense_ref(x, wr, wi, "bfloat16")
+        torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+        errs.append(float((y - want).abs().max()))
+    wr, wi = (state.replicas[0][f"fft_like.{n}"] for n in ("wr", "wi"))
+    shape = cdense_tp_times(tpk, x, wr, wi, "bfloat16", hbm_bps, peak_key)
+    if not torch.equal(p_(wr, wi).view(torch.int16),
+                       tpk.pack_stacked_weight_ref(wr, wi).view(torch.int16)):
+        raise AssertionError("the pack kernel at the tp shape differs from "
+                             "pack_stacked_weight_ref")
+    pack = {n: [] for n in ("kernel", "plain")}
+    for n in ("plain", "kernel", "kernel", "plain"):
+        pack[n].append(time_ms(
+            (lambda: p_(wr, wi)) if n == "kernel"
+            else (lambda: tpk.pack_stacked_weight_ref(wr, wi)), 100)[0])
+    k, f = wr.shape
+    shape["pack"] = {"shape": [k, f], "ms": sum(pack["kernel"]) / 2,
+                     "plain_ms": sum(pack["plain"]) / 2,
+                     "bound_ms": 16 * k * f / hbm_bps * 1e3,
+                     "bound_by": "bytes"}
+    t0 = time.time()
+    res = {}
+    for name, mesh in (("tp", tp_mesh(dev, TP_DP, TP_TP)),
+                       ("dp", tp_mesh(dev, TP_DP, 1))):
+        res[name] = ber_sweep(single, torch.Generator(device=dev)
+                              .manual_seed(999), snrs=TP_SWEEP_SNRS,
+                              frames_per_point=4000, batch_frames=3000,
+                              log_fn=lambda *a: None, mesh=mesh)
+    same = (np.array_equal(res["tp"].ber, res["dp"].ber)
+            and np.array_equal(res["tp"].loss, res["dp"].loss))
+    if not same:
+        raise AssertionError(f"tp sweep {res['tp'].ber} differs from the dp "
+                             f"sweep {res['dp'].ber}")
+    line = {"phase": 25, "part": "b", "dp": 1, "tp": TP_TP,
+            "frames": b, "launches": launches, "grad_err": gerr,
+            "kernel_vs_plain_err": errs, "complex_dense_tp_shape": shape,
+            "sweep_snrs": list(TP_SWEEP_SNRS), "sweep_ber": list(
+                map(float, res["tp"].ber)), "sweep_bit_identical": same,
+            "sweep_seconds": time.time() - t0}
+    print(json.dumps(line), flush=True)
+    log(f"nfft-512 bf16 tp (dp 1 x tp 2): gradients within 1e-2 of each "
+        f"leaf's max (worst {gerr:.3g}); pack and bf16 GEMM at N = 256, "
+        f"{launches}; kernel == plain within 1e-5 ({max(errs):.3g}); bf16 "
+        f"at {shape['shape']}: kernel {shape['kernel_ms']:.4f} ms, bf16 "
+        f"cuBLAS {shape['library_ms']:.4f}, bound {shape['bound_ms']:.4f}; "
+        f"sweep on dp 2 x tp 2 == dp 2 bit for bit, BER "
+        f"{[f'{v:.4g}' for v in res['tp'].ber]}")
+    return {"launches_bf16": launches["bf16"], "launches_pack":
+            launches["pack"], "shape": shape}
+
+
+def phase_tp_equalizer(tpk, dev) -> dict:
+    """Phase 25c: the committed opt-12 arm in `EqualizerTrainer` on dp 1 x
+    tp 2: the Equalizer keys' gradients within rtol 2e-4 / atol 1e-6 of
+    the single-device ones on one batch (`tests/test_parallel.py:312`);
+    beside it, each one's worst error against the same trainer's float64
+    gradients on the CPU (relative to a leaf's largest value: float32's
+    own noise).  The receiver stays frozen over a step."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    arm = params_from_flax(load_params_npz(TP_EQ_ARM))
+    cfg, tc = OFDMConfig(nbits=2), TrainConfig(snr=10.0, opt=12)
+
+    def make(**kw):
+        return EqualizerTrainer(cfg, tc, channel="mixRayleigh", **kw)
+
+    tr = make(mesh=tp_mesh(dev, 1, TP_TP))
+    single, ref = make(device=dev), make(device="cpu")
+    params = {k: v.to(dev) for k, v in arm.items()}
+    tr._set_trainable(params)
+    single._set_trainable(params)
+    ref._set_trainable(params)
+    state = tr._new_state(params, tr._trainable)
+    gen = torch.Generator(device=dev).manual_seed(253)
+    b = tr.batch_frames
+    bits, rx, _, _, _ = single.synthesize(
+        b, torch.full((b,), 10.0, device=dev), gen)
+    g_tp = mesh_grads(tr, state, bits, rx)
+    g_1d = single_grads(single, params, bits, rx, tr._trainable)
+    ref.model.double()
+    g_64 = single_grads(ref, {k: v.double().cpu() for k, v in arm.items()},
+                        bits.cpu(), rx.double().cpu(), tr._trainable)
+
+    def worst(g):
+        return max(float((g[k].double().cpu() - v).abs().max()
+                         / v.abs().max()) for k, v in g_64.items())
+
+    w_tp, w_1d = worst(g_tp), worst(g_1d)
+    gerr = close_grads("equalizer tp gradients", g_tp, g_1d, 2e-4, 1e-6)
+    new, aux = tr._mesh_step(state, *[[t] for t in (bits, rx)], [{}],
+                             torch.tensor(0.0, device=dev))
+    frozen = all(torch.equal(new.params[k], params[k]) for k in params
+                 if k.startswith("receiver."))
+    line = {"phase": 25, "part": "c", "arm": os.path.basename(TP_EQ_ARM),
+            "frames": b, "worst_rel_err_tp_vs_float64": w_tp,
+            "worst_rel_err_single_vs_float64": w_1d,
+            "grad_rel_err_vs_single": gerr,
+            "tolerance": "rtol 2e-4, atol 1e-6",
+            "receiver_frozen": frozen, "loss": float(aux["loss"])}
+    print(json.dumps(line), flush=True)
+    log(f"equalizer opt 12 tp (dp 1 x tp 2): gradients within rtol 2e-4 "
+        f"/ atol 1e-6 of single-device (worst {gerr:.3g} of a leaf max); "
+        f"against float64 {w_tp:.3g} (single-device float32 {w_1d:.3g}); "
+        f"receiver frozen: {frozen}")
+    if not (frozen and np.isfinite(line["loss"])):
+        raise AssertionError(f"equalizer tp: {line}")
+    return line
+
+
+def phase_tp_resume(dev) -> dict:
+    """Phase 25d: a resumed fit on dp 2 x tp 2 at nfft 256 (2 + 2 epochs
+    against 4) bit-identical, as phase 22 holds the others."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg = OFDMConfig(nbits=1, nfft=256, nfilter=256)
+    tc = TrainConfig(snr=5.0, batch_size=7 * 64, msg_length=7 * 64 * 4,
+                     early_stop=50)
+    c = resume_check("nfft-256 dp 2 x tp 2", lambda: Trainer(
+        cfg, tc, channel="ETU", mesh=tp_mesh(dev, TP_DP, TP_TP)), 4, 2, 1,
+        grow_batch=False)
+    print(json.dumps({"phase": 25, "part": "d", **c}), flush=True)
+    if c["n_differ"]:
+        raise AssertionError(f"tp resume differs at {c['differ']}")
+    return c
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3238,6 +3939,15 @@ def main() -> None:
     baseline = phase_baselines(tpk, dev, smi)
     base_fir = phase_baseline_fir(tpk, dev, hbm_bps, f32_flops)
 
+    # -- 24-25. the ablation and legacy paths, tensor parallelism ----------
+    phase_legacy_cpu_parity(dev)
+    legacy = phase_legacy_fir(tpk, dev, hbm_bps, f32_flops)
+    phase_dnn_ablation(tpk, tfs, dev)
+    tp_big = phase_tp_big(tpk, dev, hbm_bps, peak_key)
+    tp_512 = phase_tp_big512(tpk, dev, hbm_bps, peak_key)
+    phase_tp_equalizer(tpk, dev)
+    phase_tp_resume(dev)
+
     # -- 17-18, 21, 23. the profiled phases -----------------------------------
     phase_profile_eq(dev)
     phase_model_breakdown(tfm, dev)
@@ -3268,7 +3978,13 @@ def main() -> None:
          "launches": (launches_serve["fir_shift_accum"]
                       + launches_eq["fir_shift_accum"]
                       + launches_mesh["fir_shift_accum"]
-                      + ring["fir_launches"] + baseline["launches"]),
+                      + ring["fir_launches"] + baseline["launches"]
+                      + legacy["launches"]),
+         "launches_legacy": legacy["launches"],
+         "legacy_shapes": {sh: {k: v[k] for k in (
+             "path", "kernel_ms", "call_ms", "plain_ms", "conv1d_ms",
+             "bound_ms", "bound_by", "max_abs_err")}
+             for sh, v in legacy["shapes"].items()},
          "launches_serving": launches_serve["fir_shift_accum"],
          "launches_training": launches_eq["fir_shift_accum"],
          "launches_dp_training": launches_mesh["fir_shift_accum"],
@@ -3288,13 +4004,21 @@ def main() -> None:
         launches_equalizer_serving=launches_serve["complex_dense"],
         launches_equalizer_training=launches_eq["complex_dense"],
         launches_bf16=big["launches_bf16"],
-        launches_bf16_cli=cli_run["launches_bf16"], **bf16["complex_dense"])
+        launches_bf16_cli=cli_run["launches_bf16"], **bf16["complex_dense"],
+        launches_tp=tp_big["launches"],
+        launches_bf16_tp=tp_512["launches_bf16"],
+        tp_shapes={"x".join(map(str, sh["shape"])) + f" {sh['mode']}": {
+            k: sh[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by")}
+            for sh in (tp_big["shape"], tp_512["shape"])})
     kernels.insert(1, {
         "name": "pack_stacked_weight", "route": "cuda",
         "source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",
         "replaces": "dl_ofdm_tpu/ops/pallas_kernels.py:80",
         "launches": big["launches_pack"],
-        "launches_cli": cli_run["launches_pack"], **bf16["pack"]})
+        "launches_cli": cli_run["launches_pack"], **bf16["pack"],
+        "launches_tp": tp_512["launches_pack"],
+        "tp_shape": tp_512["shape"]["pack"]})
 
     # -- 5. kernels line and the result ---------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)

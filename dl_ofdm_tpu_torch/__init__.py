@@ -18,16 +18,21 @@ training step of the basic `Trainer` on AWGN, static and Jakes-Doppler
 `csrc/fused_model.cu`); the PRNG probe (`csrc/philox_probe.cu`); and the
 equalizer transfer-learning stage (`models/equalizers.py`,
 `models/receiver.py`, `train/equalizer_loop.py`), whose static FIR runs on
-`csrc/fir_shift_accum.cu`; and the device mesh (`parallel/`): data
-parallelism over ranks of one process for training, the equalizer stage
-and the sweeps, and the sequence-parallel halo FIR, whose ring exchange
-runs on `csrc/ring_exchange.cu`; the bf16 receiver (`compute_dtype`,
+`csrc/fir_shift_accum.cu`; and the device mesh (`parallel/`): data and
+tensor parallelism over the ranks of a [dp, tp] grid in one process for
+training, the equalizer stage and the sweeps (`parallel/tp.py`), and the
+sequence-parallel halo FIR, whose ring exchange runs on
+`csrc/ring_exchange.cu`; the bf16 receiver (`compute_dtype`,
 through `complex_dense`'s bf16 mode); and the entry points: `cli.py`,
 `runner.py`, the checkpoints and resume payloads of `train/checkpoint.py`
 and `utils/` (`timing`, `observability`); the classical-receiver
 baselines (`baselines/`: the MATLAB-parity link, estimators 1-10, the
 CLI's `baseline`), whose static channel runs on `fir_shift_accum`; and
-the rest of `eval/` (the `.mat` waveform interop, plots).
+the rest of `eval/` (the `.mat` waveform interop, plots); and the
+ablation and legacy paths (`DNNReceiver`, `models/e2e_blocks.py`,
+`ofdm/legacy_tx.py`, `ofdm/papr.py`, `channel/legacy.py`, the AWGN and
+complex FFT FIR variants).  `ofdm/papr.py::clip_papr` and the complex FFT
+variants take complex tensors, as the JAX functions do.
 `utils/cache.py` (JAX's persistent compilation cache) has no counterpart:
 PyTorch runs eagerly, and `ops/cuda_build.py` builds each kernel once per
 source.

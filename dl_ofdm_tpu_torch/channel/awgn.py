@@ -16,6 +16,12 @@ arithmetic.  So it takes 128 values, from -2.890625 to 2.515625 (variance
 uniform bits a value and looks them up.  In float32 both packages draw
 Gaussians (`torch.randn`; JAX's agrees with it up to draws beyond ~5.3
 sigma).
+
+The reference's three other AWGN variants follow
+(`dl_ofdm_tpu/channel/awgn.py:39-95`): `awgn_channel_phase` and
+`awgn_channel_norm` (batch-normalized input, moments over axis 0) and
+`awgn_channel_complex` (complex tensors in and out, as JAX's); each takes
+its draws injected or from `generator`.
 """
 from __future__ import annotations
 
@@ -91,4 +97,94 @@ def awgn_channel(x_iq: torch.Tensor, snr_db: torch.Tensor,
                                  device=x_iq.device, generator=generator)
     noise = noise_std * unit_noise.to(x_iq.dtype)
     noise_power = torch.mean(noise[..., 0] ** 2 + noise[..., 1] ** 2)
+    return x_norm + noise, noise_power
+
+
+def _batch_normalize(x_iq: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) / sqrt(2), the moments over axis 0 and
+    the variance the population's, as `jnp.var` takes it."""
+    mean = torch.mean(x_iq, dim=0, keepdim=True)
+    var = torch.var(x_iq, dim=0, unbiased=False, keepdim=True)
+    return (x_iq - mean) * torch.rsqrt(var + eps) / math.sqrt(2.0)
+
+
+def awgn_channel_phase(x_iq: torch.Tensor, snr_db: torch.Tensor,
+                       generator: torch.Generator | None = None,
+                       eps: float = 1e-8,
+                       unit_amp: torch.Tensor | None = None,
+                       phase: torch.Tensor | None = None):
+    """The reference's in-graph AWGN variant (`dev/py/radio.py:62-88`,
+    `dl_ofdm_tpu/channel/awgn.py:39-62`): batch-normalize the input /
+    sqrt(2), then add noise of amplitude |level * N(0, 1)| at a uniform
+    phase in [0, 2 pi), split as (sin, cos) across I/Q.
+
+    Args:
+      x_iq: [B, S, T, 2]; snr_db: [B] or [B, 1] dB.
+      generator: draws `unit_amp` (normals) and then `phase`.
+      unit_amp, phase: [B, S, T, 1] draws to use instead (tests feed both
+        packages the same ones).
+    Returns: (y_iq [B, S, T, 2], noise_power scalar).
+    """
+    x_norm = _batch_normalize(x_iq, eps)
+    snr_db = snr_db.reshape(-1, 1, 1, 1).to(x_iq.dtype)
+    level = math.sqrt(0.5) * 10.0 ** (-snr_db / 20.0)
+    shape = x_iq.shape[:-1] + (1,)
+    if unit_amp is None:
+        unit_amp = torch.randn(shape, dtype=x_iq.dtype, device=x_iq.device,
+                               generator=generator)
+    if phase is None:
+        phase = 2 * math.pi * torch.rand(shape, dtype=x_iq.dtype,
+                                         device=x_iq.device,
+                                         generator=generator)
+    amp = torch.abs(level * unit_amp)
+    noise = torch.cat([amp * torch.sin(phase), amp * torch.cos(phase)],
+                      dim=-1)
+    noise_power = torch.mean(noise[..., 0] ** 2 + noise[..., 1] ** 2)
+    return x_norm + noise, noise_power
+
+
+def awgn_channel_norm(x_iq: torch.Tensor, snr_db: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      norm: bool = True, eps: float = 1e-6,
+                      unit_noise: torch.Tensor | None = None):
+    """The reference's norm-toggle AWGN variant (`dev/py/radio.py:91-120`,
+    `dl_ofdm_tpu/channel/awgn.py:65-84`): batch-normalize the input /
+    sqrt(2); the noise std is sqrt(0.5) 10^(-SNR/20), times each frame's
+    RMS amplitude after the normalization where `norm` is set.
+
+    `unit_noise` [B, S, T, 2] float32 normals replace the draw from
+    `generator`.  Returns (noisy IQ, mean noise power)."""
+    b = x_iq.shape[0]
+    x_norm = _batch_normalize(x_iq, eps)
+    amp2 = x_norm[..., 0] ** 2 + x_norm[..., 1] ** 2
+    avg_amp = torch.sqrt(torch.mean(amp2.reshape(b, -1), dim=1))    # [B]
+    level = math.sqrt(0.5) * 10.0 ** (-snr_db.reshape(b).to(x_iq.dtype)
+                                      / 20.0)
+    if norm:
+        level = level * avg_amp
+    if unit_noise is None:
+        unit_noise = torch.randn(x_iq.shape, dtype=x_iq.dtype,
+                                 device=x_iq.device, generator=generator)
+    noise = level.reshape(b, 1, 1, 1) * unit_noise
+    noise_power = torch.mean(noise[..., 0] ** 2 + noise[..., 1] ** 2)
+    return x_norm + noise, noise_power
+
+
+def awgn_channel_complex(x: torch.Tensor, snr_db: torch.Tensor,
+                         generator: torch.Generator | None = None,
+                         unit_noise: torch.Tensor | None = None):
+    """Complex-waveform variant (`dl_ofdm_tpu/channel/awgn.py:87-95`):
+    x [B, S, T] complex, snr_db [B].  It takes and returns complex tensors,
+    as JAX's does.  `unit_noise` (complex, x's shape: re and im unit
+    normals) replaces the draws from `generator`, re first."""
+    snr_db = snr_db.reshape(-1, 1, 1).to(x.real.dtype)
+    sig_pwr = torch.mean(x.abs() ** 2)
+    x_norm = x * torch.rsqrt(sig_pwr)
+    noise_std = math.sqrt(0.5) * 10.0 ** (-snr_db / 20.0)
+    if unit_noise is None:
+        re = torch.randn(x.shape, device=x.device, generator=generator)
+        im = torch.randn(x.shape, device=x.device, generator=generator)
+        unit_noise = torch.complex(re, im)
+    noise = (noise_std * unit_noise).to(x.dtype)
+    noise_power = torch.mean(noise.abs() ** 2)
     return x_norm + noise, noise_power

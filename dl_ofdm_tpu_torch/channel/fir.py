@@ -8,6 +8,11 @@ offset (on a CUDA device the accumulation is one launch of the
 `fir_shift_accum` kernel, on the CPU the plain loop); and of
 `fir_per_symbol_iq` (`fir.py:175-222`), the per-symbol
 variant of the Doppler path.
+
+The complex FFT-convolution variants (`fir.py:22-107`: `_fft_conv_full`,
+`fir_same_batched`, `fir_same_varlen`, `fir_per_symbol` and the NumPy
+oracle `np_convolve_same_reference`) take and return complex tensors, as
+JAX's do; they run on `torch.fft`.
 """
 from __future__ import annotations
 
@@ -16,6 +21,65 @@ import torch
 import torch.nn.functional as F
 
 from dl_ofdm_tpu_torch.ops.pallas_kernels import fir_shift_accum
+
+
+def _fft_conv_full(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Full linear convolution along the last axis via FFT: x [..., L],
+    h [..., F] (broadcastable leading dims) -> [..., L+F-1], complex."""
+    n = x.shape[-1] + h.shape[-1] - 1
+    return torch.fft.ifft(torch.fft.fft(x, n=n, dim=-1)
+                          * torch.fft.fft(h, n=n, dim=-1), dim=-1)
+
+
+def fir_same_batched(x: torch.Tensor, h: torch.Tensor,
+                     same_offset: int) -> torch.Tensor:
+    """np.convolve(x_i, h_i, 'same') for each batch row: x [..., L] and
+    h [..., F] complex; `same_offset` is (F-1)//2 of the unpadded kernel.
+    Returns [..., L] in x's dtype."""
+    full = _fft_conv_full(x, h)
+    return full[..., same_offset:same_offset + x.shape[-1]].to(x.dtype)
+
+
+def fir_same_varlen(x: torch.Tensor, h: torch.Tensor,
+                    same_offset: torch.Tensor) -> torch.Tensor:
+    """`fir_same_batched` with a per-row offset (the mixed channel's
+    zero-padded kernels, `dev/py/radio.py:450-490`): x [B, L], h [B, Fmax],
+    same_offset [B] integers."""
+    full = _fft_conv_full(x, h)                      # [B, L+Fmax-1]
+    pos = (torch.arange(x.shape[-1], device=x.device)[None, :]
+           + same_offset.to(x.device, torch.int64)[:, None])
+    return torch.gather(full, -1, pos).to(x.dtype)
+
+
+def fir_per_symbol(tx: torch.Tensor, h_sym: torch.Tensor, n_taps: int,
+                   same_offset: torch.Tensor | int) -> torch.Tensor:
+    """Per-symbol time-varying FIR with `n_taps` look-back history
+    (`dev/py/radio.py:399-421`): symbol i's window is
+    pre[n_sc i : n_taps + n_sc (i+1)] of the frame with `n_taps` leading
+    zeros, convolved 'same' with that symbol's kernel, the first n_taps
+    outputs dropped; the future beyond the symbol is zeros.
+
+    Args:
+      tx: [B, S, n_sc] complex; h_sym: [B, S, F] complex kernels;
+      same_offset: an int or [B] integers ((F_orig-1)//2).
+    Returns [B, S, n_sc] complex.
+    """
+    b, s, n_sc = tx.shape
+    pre = F.pad(tx.reshape(b, s * n_sc), (n_taps, 0))
+    idx = (torch.arange(s, device=tx.device)[:, None] * n_sc
+           + torch.arange(n_taps + n_sc, device=tx.device)[None, :])
+    windows = pre[:, idx]                            # [B, S, n_taps+n_sc]
+    full = _fft_conv_full(windows, h_sym)            # [B, S, n_taps+n_sc+F-1]
+    off = torch.as_tensor(same_offset, device=tx.device).to(torch.int64)
+    off = off.expand(b) if off.dim() == 0 else off
+    pos = (torch.arange(n_sc, device=tx.device)[None, None, :] + n_taps
+           + off[:, None, None]).expand(b, s, n_sc)
+    return torch.gather(full, -1, pos).to(tx.dtype)
+
+
+def np_convolve_same_reference(x: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """Host-side oracle for tests: NumPy semantics, one row."""
+    return np.convolve(x, h, mode="same")
 
 
 def _prealign_plane(xp: torch.Tensor, offsets: np.ndarray,

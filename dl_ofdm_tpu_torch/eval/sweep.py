@@ -17,11 +17,15 @@ SNR -10:5:30, 30,000 frames a point, one CSV per channel).
 
 Counts accumulate on the device and are read once at the end of the sweep.
 
-With `mesh=` (dp only, `parallel/mesh.py`; `sweep.py:71-77`, `:85-146`,
-`:167-251`) every batch is split over the ranks: each rank draws and
+With `mesh=` (`parallel/mesh.py`; `sweep.py:71-77`, `:85-146`,
+`:167-251`) every batch is split over the dp rows: each row draws and
 evaluates its shard on its device with its own generator
 (`rank_generators`, drawn once a sweep) and its copy of the model, and the
-error and CE counts are summed over the ranks.
+error and CE counts are summed over the rows.  The model's parameters go
+in gathered, as JAX passes them (`P()`) into its `shard_map`
+(`sweep.py:136-141`): on a mesh with tp > 1 the sweep is the dp protocol
+over the dp rows, bit-identical to the dp-only mesh's from the same
+generator.
 
   * interleaved: `rep = max(batch_frames // n_points, 4 dp)`, rounded up
     to a multiple of dp, in the single-device interleaving order, so every
@@ -46,8 +50,7 @@ import numpy as np
 import torch
 
 from dl_ofdm_tpu_torch.ops.norms import normalize
-from dl_ofdm_tpu_torch.parallel.mesh import (check_dp_only, module_replicas,
-                                             rank_generators)
+from dl_ofdm_tpu_torch.parallel.mesh import module_replicas, rank_generators
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.loop import first_output
 
@@ -114,7 +117,7 @@ def ber_sweep(trainer, generator: torch.Generator | None = None,
               log_fn=print,
               point_batch: bool = False, mesh=None) -> SweepResult:
     """Run the BER sweep of `trainer.model` with data made on its device,
-    or over the ranks of a dp `mesh` (see the module note).
+    or over the dp rows of a `mesh` (see the module note).
 
     `generator` (on `trainer.device`) drives every draw; the device's
     default generator when None."""
@@ -179,8 +182,7 @@ def global_moments(ys: list, device: torch.device):
 def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                     batch_frames: int, log_fn, point_batch: bool,
                     mesh) -> SweepResult:
-    """`ber_sweep` over the ranks of a dp mesh (see the module note)."""
-    check_dp_only(mesh)
+    """`ber_sweep` over the dp rows of a mesh (see the module note)."""
     devs = mesh.dp_devices
     dp, dev0 = len(devs), devs[0]
     models = module_replicas(trainer.model, devs)

@@ -211,7 +211,10 @@ class Equalizer(nn.Module):
             h = h[:, :, self.cp_len:self.cp_len + self.nfft, :]
         return h.reshape(x.shape[0], self.nsymbol, -1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, tp=None):
+        """`tp` (a `parallel.tp.TensorParallel` of this module's keys) runs
+        `Dense_interp*` and `Dense_block*` column-parallel over a dp row's
+        tp ranks, their outputs gathered before the activations."""
         spec = self.spec
         if spec.legacy_dnn:
             return self._legacy_dnn(x)
@@ -241,14 +244,19 @@ class Equalizer(nn.Module):
                 stages.append(nxt)
                 prev, cur = cur, nxt
             c = torch.cat(stages, dim=-1)
+        def wide(name, v):
+            layer = getattr(self, name)
+            return layer(v) if tp is None else tp.column_linear(layer, name,
+                                                                v)
+
         for i, act in enumerate(spec.pre_dense_acts):
-            c = getattr(self, f"Dense_interp{i}")(c)
+            c = wide(f"Dense_interp{i}", c)
             if act == "tanh":
                 c = torch.tanh(c)
 
         # -- refinement blocks --------------------------------------------
         for i in range(spec.n_blocks):
-            c = torch.tanh(getattr(self, f"Dense_block{i}")(c.reshape(b, -1)))
+            c = torch.tanh(wide(f"Dense_block{i}", c.reshape(b, -1)))
             if spec.block_conv != "none":
                 blk = getattr(self, f"BlockConv{i}")(c.reshape(b, s, k, 1, 2))
                 c = blk.reshape(b, s * k * 2)

@@ -46,22 +46,34 @@ class SingleGraphEqualizedRx(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         reset_all(self, generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, tp=None):
+        """`tp` (a `parallel.tp.TensorParallel`) splits `fft_like` and
+        `Dense_interp*` column-parallel and `Dense_extract` row-parallel
+        over a dp row's tp ranks."""
         b, s, f = x.shape[0], self.nsymbol, self.nfilter
         h = frame_layer_norm(x)
         if not self.keep_cp:
             h = h[:, :, self.cp_len:self.cp_len + self.nfft, :]
         h = self.Dense_in(h.reshape(b, s, -1)).reshape(b, s, f, 2)
-        freq = self.fft_like(h)                            # [B, S, F, 2]
+        if tp is None:
+            freq = self.fft_like(h)                        # [B, S, F, 2]
+        else:
+            freq = tp.complex_dense(self.fft_like, "fft_like", h)
+
+        def wide(name, v, split):
+            layer = getattr(self, name)
+            return layer(v) if tp is None else split(layer, name, v)
 
         c = self.Dense_pilot(freq.reshape(b, s * f * 2))
-        c = self.Dense_interp1(self.Dense_interp0(c))
+        c = wide("Dense_interp0", c, tp and tp.column_linear)
+        c = wide("Dense_interp1", c, tp and tp.column_linear)
         chest = self.RefineConv(c.reshape(b, s, f, 1, 2)).reshape(b, s, f, 2)
         h_norm = cfloat.conj_iq(chest) / (
             cfloat.abs_iq(chest, eps=1e-24)[..., None] + 1e-12)
         eq = cfloat.cmul_iq(freq, h_norm)
 
-        o = self.Dense_extract(eq.reshape(b, s * f * 2))
+        o = wide("Dense_extract", eq.reshape(b, s * f * 2),
+                 tp and tp.row_linear)
         o = o.reshape(b, 1, self.frame_size, 2)
         o2 = torch.cat([leaky_relu(o), o], dim=-1)
         o2 = leaky_relu(self.Dense_llr(o2))
@@ -92,7 +104,12 @@ class EqualizedReceiver(nn.Module):
         self.Equalizer.reset_parameters(generator)
         self.receiver.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor):
-        equalized, snr_db, chest = self.Equalizer(x)
-        logits, fft_out = self.receiver(equalized)
+    def forward(self, x: torch.Tensor, tp=None):
+        """`tp`: a `parallel.tp.TensorParallel`, passed to both parts with
+        their keys' scopes."""
+        eq_tp = rx_tp = None
+        if tp is not None:
+            eq_tp, rx_tp = tp.scope("Equalizer"), tp.scope("receiver")
+        equalized, snr_db, chest = self.Equalizer(x, tp=eq_tp)
+        logits, fft_out = self.receiver(equalized, tp=rx_tp)
         return logits, fft_out, equalized, snr_db, chest

@@ -1,2 +1,3 @@
 from dl_ofdm_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh, make_mesh, shard_batch, param_sharding_rules, shard_params)
+    Mesh, gather_params, make_mesh, param_sharding_rules, shard_batch,
+    shard_dims, shard_params)

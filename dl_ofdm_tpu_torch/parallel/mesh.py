@@ -1,4 +1,4 @@
-"""The device mesh: data parallelism over 'dp' in one process.
+"""The device mesh: data and tensor parallelism in one process.
 
 Port of `dl_ofdm_tpu/parallel/mesh.py:27-85`.  JAX's mesh is
 single-controller: one process holds a `jax.sharding.Mesh` over
@@ -6,13 +6,15 @@ single-controller: one process holds a `jax.sharding.Mesh` over
 `Mesh` is the same idea without GSPMD: a [dp, tp] grid of `torch.device`s
 that the trainer and the sweeps walk rank by rank from one process.
 
-  * 'dp': each rank draws, normalizes and evaluates its own shard of the
-    frames on its device with its own replica of the parameters; the
-    gradients and the error counts are summed over the ranks in rank order
-    (the trainer, `train/loop.py`, and the sweeps, `eval/sweep.py`);
-  * 'tp' (tensor parallelism over the learned-DFT filter axis and the wide
-    dense layers) is not ported: `shard_params` and every mesh entry point
-    raise on tp > 1 (ROADMAP.md Queue A item 12).
+  * 'dp': each dp row draws, normalizes and evaluates its own shard of the
+    frames with its own copy of the parameters; the gradients and the
+    error counts are summed over the rows in row order (the trainer,
+    `train/loop.py`, and the sweeps, `eval/sweep.py`);
+  * 'tp': the learned-DFT filter axis and the wide dense layers are split
+    over the tp ranks of each row by JAX's partition rules (`_RULES`):
+    `shard_params` gives every (dp, tp) rank the block of each leaf that
+    JAX's `NamedSharding` puts on that device, `gather_params` is its
+    inverse, and `parallel/tp.py` runs the forward pass on the shards.
 
 A device may appear more than once: each appearance is a virtual rank with
 buffers of its own, as JAX's virtual CPU devices are.  So one card, listed
@@ -31,10 +33,6 @@ import torch
 
 from dl_ofdm_tpu_torch import resolve_device
 
-TP_NOT_PORTED = ("tensor parallelism (a mesh with tp > 1) is not ported "
-                 "yet: ROADMAP.md Queue A item 12")
-
-
 def _device(d) -> torch.device:
     """A mesh entry as a `torch.device` with its index: 'cuda' is the
     current card; raises where CUDA is named and there is none."""
@@ -49,8 +47,10 @@ class Mesh:
     """A [dp, tp] grid of `torch.device`s with the axis names ("dp", "tp").
 
     `shape["dp"]`, `shape["tp"]` as on a `jax.sharding.Mesh`; `devices` is
-    the grid (an object array); `dp_devices` the devices of the dp ranks
-    (column 0, as tp is 1).  A device may repeat: a virtual rank."""
+    the grid (an object array); `dp_devices` the devices of the dp rows
+    (their tp rank 0, which holds a row's frames); `tp_devices(row)` the
+    devices of one row's tp ranks; `rank_devices` every rank's, row-major
+    (the order of `shard_params`).  A device may repeat: a virtual rank."""
 
     axis_names = ("dp", "tp")
 
@@ -64,6 +64,13 @@ class Mesh:
     @property
     def dp_devices(self) -> list[torch.device]:
         return list(self.devices[:, 0])
+
+    def tp_devices(self, row: int = 0) -> list[torch.device]:
+        return list(self.devices[row])
+
+    @property
+    def rank_devices(self) -> list[torch.device]:
+        return list(self.devices.flat)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
@@ -88,12 +95,6 @@ def make_mesh(devices: Sequence | None = None, dp: int | None = None,
     for i, d in enumerate(devices):
         grid[i // tp, i % tp] = d
     return Mesh(grid)
-
-
-def check_dp_only(mesh: Mesh) -> None:
-    """Raise `NotImplementedError` on a mesh with tp > 1."""
-    if mesh.shape["tp"] != 1:
-        raise NotImplementedError(TP_NOT_PORTED)
 
 
 def shard_batch(mesh: Mesh, batch):
@@ -146,13 +147,66 @@ def param_sharding_rules(path: str) -> tuple:
     return ()
 
 
+def tp_axis(key: str, ndim: int) -> int | None:
+    """The torch axis of a `state_dict` leaf that the rules split over
+    'tp' (None where no rule does), in the torch layout: a `Linear`
+    weight's rule, written for the flax kernel, names the other axis."""
+    spec = param_sharding_rules(key)
+    axis = spec.index("tp") if "tp" in spec else ndim
+    if axis >= ndim:
+        return None
+    return ndim - 1 - axis if key.endswith(".weight") and ndim == 2 else axis
+
+
+def shard_dims(mesh: Mesh, params: dict) -> dict[str, int | None]:
+    """The axis each leaf of `params` (full tensors, keyed as a
+    `state_dict`) is split along on `mesh`, None where it is replicated:
+    tp = 1, no rule, or an axis that tp does not divide (tiny layers stay
+    replicated, `dl_ofdm_tpu/parallel/mesh.py:75-83`)."""
+    tp = mesh.shape["tp"]
+    dims = {}
+    for k, v in params.items():
+        axis = None if tp == 1 else tp_axis(k, v.dim())
+        dims[k] = axis if axis is not None and v.shape[axis] % tp == 0 \
+            else None
+    return dims
+
+
 def shard_params(mesh: Mesh, params: dict) -> list[dict]:
-    """One replica of `params` (a `state_dict`-keyed dict) per dp rank, on
-    that rank's device, each with buffers of its own.  Raises
-    `NotImplementedError` on tp > 1."""
-    check_dp_only(mesh)
-    return [{k: v.detach().to(d, copy=True) for k, v in params.items()}
-            for d in mesh.dp_devices]
+    """One dict per (dp, tp) rank, row-major, on that rank's device, each
+    with buffers of its own: a leaf split by `shard_dims` holds its tp
+    rank's contiguous block along that axis (the slice of JAX's
+    `NamedSharding` on that device), any other leaf a copy.  With tp = 1
+    that is one replica of `params` per dp rank."""
+    dims = shard_dims(mesh, params)
+    tp = mesh.shape["tp"]
+    out = []
+    for r, dev in enumerate(mesh.rank_devices):
+        t = r % tp
+        out.append({k: (v if dims[k] is None
+                        else torch.chunk(v, tp, dims[k])[t]).detach().to(
+            dev, copy=True, memory_format=torch.contiguous_format)
+            for k, v in params.items()})
+    return out
+
+
+def gather_leaf(key: str, shards: list, device) -> torch.Tensor:
+    """A split leaf's shards (in tp order) concatenated on `device` along
+    its tp axis."""
+    return torch.cat([s.to(device) for s in shards],
+                     tp_axis(key, shards[0].dim()))
+
+
+def gather_params(mesh: Mesh, shards: list[dict],
+                  dims: dict[str, int | None]) -> dict:
+    """The inverse of `shard_params`: full tensors on rank 0's device, a
+    split leaf the concatenation of dp row 0's blocks in tp order, any
+    other leaf rank 0's copy.  `dims` is `shard_dims` of the full
+    parameters."""
+    row = shards[:mesh.shape["tp"]]
+    return {k: v if dims[k] is None
+            else gather_leaf(k, [s[k] for s in row], mesh.devices[0, 0])
+            for k, v in row[0].items()}
 
 
 def rank_generators(generator: torch.Generator | None,

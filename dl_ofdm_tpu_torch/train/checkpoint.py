@@ -20,7 +20,10 @@ is written to a temporary name and moved into place, so a kill mid-write
 leaves the previous payload.  These are not Orbax directories: the JAX
 package writes its checkpoints with Orbax (`checkpoint.py:43-50`), which
 the port does not use and does not read; neither package reads the
-other's checkpoints.  `token_name` is the reference's naming schema
+other's checkpoints.  A state of a tp mesh holds a split leaf's Adam
+moments as the list of its shards: `save` writes them gathered, in the
+same flax layout, and `restore` splits them again like the target's.
+`token_name` is the reference's naming schema
 (`<token>_<n>mod_snr<s>_cp<b>[_Equalizer<opt>_<chan>]`,
 `dev/py/run_local_ofdm.py:77,104`).
 """
@@ -30,6 +33,8 @@ import os
 
 import numpy as np
 import torch
+
+from dl_ofdm_tpu_torch.parallel.mesh import gather_leaf, tp_axis
 
 STATE_FILE = "state.npz"
 
@@ -92,9 +97,12 @@ def params_to_flax(params: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def _flat(prefix: str, params: dict[str, torch.Tensor]) -> dict:
+def _flat(prefix: str, params: dict) -> dict:
     """`params` as {'<prefix>/<flax path>': float32 array} ('/'-joined flax
-    paths alone where `prefix` is empty)."""
+    paths alone where `prefix` is empty); a split leaf (the list of its
+    shards) gathered on the CPU."""
+    params = {k: gather_leaf(k, [s.detach() for s in v], "cpu")
+              if isinstance(v, list) else v for k, v in params.items()}
     out: dict = {}
 
     def walk(key, node):
@@ -134,10 +142,11 @@ def token_name(token: str, nbits: int, snr: float, cp: bool,
 
 # -- checkpoints: one directory, one named-key npz ----------------------------
 
-def _unflat(data, prefix: str, like: dict[str, torch.Tensor],
-            path: str) -> dict[str, torch.Tensor]:
+def _unflat(data, prefix: str, like: dict, path: str) -> dict:
     """The tensors under `prefix/` of `data`, keyed, ordered, typed and
-    placed as `like`; raises if their names or shapes differ from it."""
+    placed as `like` (where `like` holds a list of a split leaf's shards,
+    the tensor is split along its tp axis into shards placed as those);
+    raises if their names or shapes differ from it."""
     tree: dict = {}
     start = prefix + "/"
     for key in data.files:
@@ -154,11 +163,20 @@ def _unflat(data, prefix: str, like: dict[str, torch.Tensor],
             "the target does not, or lacks them")
     out = {}
     for k, v in like.items():
-        if tuple(got[k].shape) != tuple(v.shape):
+        shards = v if isinstance(v, list) else [v]
+        axis = tp_axis(k, v[0].dim()) if isinstance(v, list) else 0
+        want = list(shards[0].shape)
+        if isinstance(v, list):
+            want[axis] = sum(t.shape[axis] for t in shards)
+        if list(got[k].shape) != want:
             raise ValueError(f"{path}: '{prefix}' {k} has shape "
                              f"{tuple(got[k].shape)}, the target "
-                             f"{tuple(v.shape)}")
-        out[k] = got[k].to(device=v.device, dtype=v.dtype)
+                             f"{tuple(want)}")
+        if isinstance(v, list):
+            out[k] = [p.to(device=t.device, dtype=t.dtype).contiguous()
+                      for p, t in zip(torch.chunk(got[k], len(v), axis), v)]
+        else:
+            out[k] = got[k].to(device=v.device, dtype=v.dtype)
     return out
 
 

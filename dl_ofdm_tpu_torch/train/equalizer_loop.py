@@ -19,10 +19,13 @@ whose static FIR is the `fir_shift_accum` kernel on a card), as the JAX
 package does by default (`fused_curriculum = False`, `equalizer_loop.py:96`);
 assigning `fused_curriculum = True` takes the synth kernel with the true
 channel (`fused_synthesize(..., want_h=True)`; its plain version on the
-CPU).  With `mesh=` (dp only, `parallel/mesh.py`) the step is data
-parallel over the ranks on the plain data plane (`Trainer._synth_mesh`
-with the true channel, `equalizer_loop.py:159-160`); a mesh with tp > 1
-raises (ROADMAP.md Queue A item 12).  `fit(ckpt_dir=)` resumes as
+CPU).  With `mesh=` (`parallel/mesh.py`) the step is data parallel over
+the dp rows on the plain data plane (`Trainer._synth_mesh` with the true
+channel, `equalizer_loop.py:159-160`) and, with tp > 1, tensor parallel
+over each row's tp ranks: the equalizer's `Dense_interp*` and
+`Dense_block*` and the frozen receiver's `fft_like` and `Dense_extract`
+split by JAX's rules (`parallel/tp.py`), Adam on the `Equalizer` keys'
+shards.  `fit(ckpt_dir=)` resumes as
 `Trainer.fit` does, its signature covering `freeze_rx` and
 `fused_curriculum` (`equalizer_loop.py:192-236`).
 """
@@ -92,9 +95,7 @@ class EqualizerTrainer(Trainer):
         if self.pretrained_rx is not None:
             params = graft_pretrained(params, self.pretrained_rx)
         self._set_trainable(params)
-        return TrainState(params, self.optimizer.init(
-            {k: params[k] for k in self._trainable}), 0,
-            self._replicate(params))
+        return self._new_state(params, self._trainable)
 
     def _grad_keys(self, params: dict) -> list[str]:
         return self._trainable
@@ -103,12 +104,14 @@ class EqualizerTrainer(Trainer):
     def _rank_terms(self, params: dict, bits: torch.Tensor,
                     rx_in: torch.Tensor, h_freq: torch.Tensor | None = None,
                     snr_db: torch.Tensor | None = None,
-                    model: torch.nn.Module | None = None):
+                    model: torch.nn.Module | None = None, tp=None):
         """(CE, confusion counts, metrics) of one batch, the metrics with
         `snr_mse` given snr_db and `chan_mse` given the true channel
-        (`equalizer_loop.py:141-163`)."""
+        (`equalizer_loop.py:141-163`); tensor parallel over `tp`'s ranks
+        where given."""
         logits, _, _, snr_est, chest = torch.func.functional_call(
-            model or self.model, params, (rx_in,))
+            model or self.model, params, (rx_in,),
+            None if tp is None else {"tp": tp})
         ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
         conf = M.confusion_matrix(bits, M.bit_predictions(logits))
         aux = {}

@@ -36,17 +36,26 @@ kernel draws its seed words from it, and on a mesh the rank generators
 are drawn from it at every step), the cursors and the batch size, so
 the resumed trajectory is bit-identical to an uninterrupted one.
 
-With `mesh=` (`parallel/mesh.py`, dp only) the step is data parallel, as
-JAX's mesh step (`loop.py:96-106`, `:187-229`): the plain data plane and
-the autograd route on every rank, each rank's shard drawn on its device
-from its own generator and normalized with its own moments
-(`_synth_mesh`), the gradients summed over the ranks (`_mesh_step`).
+With `mesh=` (`parallel/mesh.py`, a [dp, tp] grid) the step is JAX's
+mesh step (`loop.py:96-106`, `:187-229`): the plain data plane and the
+autograd route on every dp row, each row's shard of the frames drawn on
+its device from its own generator and normalized with its own moments
+(`_synth_mesh`), the gradients summed over the rows (`_mesh_step`).  With
+tp > 1 the leaves that JAX's rules split (`parallel.mesh.shard_dims`) live
+as shards on the tp ranks of every row (`TrainState.replicas`); a row's
+forward pass runs on its tp ranks (`parallel/tp.py`), each shard's
+gradient stays on its rank, the L2 term sums the shards' squares, and
+Adam runs on the shards (a split leaf's moments are the list of its
+shards, on dp row 0's tp ranks).  `TrainState.params` holds the gathered
+(full) parameters after every step, for evaluation, sweeps and
+checkpoints.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import math
 import os
 
@@ -67,8 +76,10 @@ from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
                                                build_synth_spec,
                                                fused_synthesize)
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
-from dl_ofdm_tpu_torch.parallel.mesh import (check_dp_only, module_replicas,
-                                             rank_generators, shard_params)
+from dl_ofdm_tpu_torch.parallel.mesh import (gather_leaf, module_replicas,
+                                             rank_generators, shard_dims,
+                                             shard_params)
+from dl_ofdm_tpu_torch.parallel.tp import TensorParallel
 from dl_ofdm_tpu_torch.train import checkpoint as ckpt
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.utils.observability import dump_constellation
@@ -79,15 +90,43 @@ class TrainState:
     params: dict          # name -> tensor, keyed as the model's state_dict()
     opt_state: dict       # Adam moments and count (`Adam.init`)
     step: int
-    # on a mesh: one copy of `params` per dp rank, on its device
+    # on a mesh: each (dp, tp) rank's parameters on its device, row-major
+    # (`parallel.mesh.shard_params`: with tp = 1 a copy of `params` per dp
+    # rank)
     replicas: list[dict] | None = None
+
+
+def flatten_leaves(tree: dict):
+    """A dict whose values are tensors or lists of tensors (the shards of a
+    leaf split over tp ranks) -> (its structure, the flat list of
+    tensors)."""
+    spec, flat = [], []
+    for k, v in tree.items():
+        if isinstance(v, list):
+            spec.append((k, len(v)))
+            flat.extend(v)
+        else:
+            spec.append((k, None))
+            flat.append(v)
+    return spec, flat
+
+
+def unflatten_leaves(spec, flat) -> dict:
+    """The inverse of `flatten_leaves`."""
+    out, i = {}, 0
+    for k, n in spec:
+        out[k] = flat[i] if n is None else list(flat[i:i + n])
+        i += 1 if n is None else n
+    return out
 
 
 class Adam:
     """optax's `adam` (b1 0.9, b2 0.999, eps 1e-8 outside the sqrt) behind
     its staircase `exponential_decay` schedule, optionally after
     `clip_by_global_norm` (`loop.py:60-67`), as functions of dicts of
-    tensors: `init(params)`, `update(grads, state)`."""
+    tensors: `init(params)`, `update(grads, state)`.  A value may be the
+    list of a split leaf's shards (a tp mesh): Adam runs on each shard on
+    its device, and the global norm counts each element once."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -101,38 +140,43 @@ class Adam:
             count // tc.lr_decay_steps)
 
     def init(self, params: dict) -> dict:
+        spec, flat = flatten_leaves(params)
         return {"count": 0,
-                "mu": {k: torch.zeros_like(v) for k, v in params.items()},
-                "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+                "mu": unflatten_leaves(spec, [torch.zeros_like(v)
+                                              for v in flat]),
+                "nu": unflatten_leaves(spec, [torch.zeros_like(v)
+                                              for v in flat])}
 
     def update(self, grads: dict, state: dict):
         """(updates, new state); add the updates to the parameters.
 
         optax's operations in optax's order, each over all tensors at once
         (`torch._foreach_*`: one launch per operation, not per tensor)."""
-        keys = list(grads)
-        g = [grads[k] for k in keys]
+        spec, g = flatten_leaves(grads)
+        moments = {m: flatten_leaves({k: state[m][k] for k in grads})[1]
+                   for m in ("mu", "nu")}
         clip = self.tc.grad_clip
         if clip > 0:
             # optax's clip_by_global_norm: g if ||g|| < c else (g / ||g||) c
             # (no epsilon, unlike torch's clip_grad_norm_)
-            norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
-            g = [torch.where(norm < clip, t, (t / norm) * clip) for t in g]
+            norm = torch.sqrt(sum(torch.sum(t * t).to(g[0].device)
+                                  for t in g))
+            g = [torch.where(n < clip, t, (t / n) * clip)
+                 for t, n in ((t, norm.to(t.device)) for t in g)]
         count = state["count"] + 1
         lr = self.learning_rate(state["count"])
         b1, b2 = self.b1, self.b2
         mul, add, div = (torch._foreach_mul, torch._foreach_add,
                          torch._foreach_div)
-        mu = add(mul(g, 1 - b1), mul([state["mu"][k] for k in keys], b1))
-        nu = add(mul(mul(g, g), 1 - b2),
-                 mul([state["nu"][k] for k in keys], b2))
+        mu = add(mul(g, 1 - b1), mul(moments["mu"], b1))
+        nu = add(mul(mul(g, g), 1 - b2), mul(moments["nu"], b2))
         mu_hat = div(mu, 1 - b1 ** count)
         nu_hat = div(nu, 1 - b2 ** count)
         den = add(torch._foreach_sqrt(nu_hat), self.eps)
         upd = mul(div(mu_hat, den), -lr)
-        return dict(zip(keys, upd)), {"count": count,
-                                      "mu": dict(zip(keys, mu)),
-                                      "nu": dict(zip(keys, nu))}
+        return unflatten_leaves(spec, upd), {
+            "count": count, "mu": unflatten_leaves(spec, mu),
+            "nu": unflatten_leaves(spec, nu)}
 
 
 def make_optimizer(tc: TrainConfig) -> Adam:
@@ -172,10 +216,11 @@ class Trainer:
     `device` defaults to `cuda` and raises where there is none
     (`resolve_device`); the model's parameters live there.
 
-    `mesh` (a dp-only `parallel.mesh.Mesh`) makes the step data parallel
-    over its ranks; `batch_frames` is rounded up to a multiple of dp, the
-    device is rank 0's, and the fused route is never taken
-    (`loop.py:146`)."""
+    `mesh` (a `parallel.mesh.Mesh`) makes the step data parallel over its
+    dp rows and, with tp > 1, tensor parallel over each row's tp ranks;
+    `batch_frames` is rounded up to a multiple of dp (the tp ranks of a
+    row share its frames), the device is rank 0's, and the fused route is
+    never taken (`loop.py:146`)."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig, channel: str = "AWGN",
                  mobile: bool = False, mix: bool | None = None,
@@ -183,7 +228,6 @@ class Trainer:
                  device: str | torch.device | None = None, mesh=None):
         self.mesh = mesh
         if mesh is not None:
-            check_dp_only(mesh)
             rank0 = mesh.dp_devices[0]
             if device is not None and resolve_device(device) != rank0:
                 raise ValueError(f"device {device} is not the mesh's rank 0 "
@@ -241,9 +285,18 @@ class Trainer:
         on_card = self.device.type == "cuda" and mesh is None
         self._use_fused_synth = on_card and self._fused_synth_spec is not None
         self._use_fused_model = on_card and self._fused_model_spec is not None
-        # the model on every rank's device, for the ranks' forward passes
+        # the model on every dp row's device, for the rows' forward passes
         self._rank_models = (None if mesh is None else
                              module_replicas(self.model, mesh.dp_devices))
+        # the axis each parameter is split along over tp (None: replicated)
+        self._dims = ({} if mesh is None else
+                      shard_dims(mesh, self.model.state_dict()))
+        self._tp = any(d is not None for d in self._dims.values())
+        if self._tp and "tp" not in inspect.signature(
+                self.model.forward).parameters:
+            raise ValueError(f"{type(self.model).__name__} has split "
+                             "parameters on this mesh but no tensor-"
+                             "parallel forward (tp=)")
 
     def _round_to_dp(self, frames: int) -> int:
         """`frames` rounded up to a multiple of the mesh's dp (so that every
@@ -253,20 +306,40 @@ class Trainer:
         return frames + (-frames) % self.mesh.shape["dp"]
 
     def _replicate(self, params: dict) -> list[dict] | None:
-        """Each dp rank's copy of `params`; None off a mesh."""
+        """Each (dp, tp) rank's parameters; None off a mesh."""
         return None if self.mesh is None else shard_params(self.mesh, params)
+
+    def _leaves(self, params: dict, replicas: list[dict] | None,
+                keys) -> dict:
+        """The optimizer's view of `keys`: the full tensor of a replicated
+        leaf (from `params`), the list of dp row 0's shards of a split one
+        (from `replicas`)."""
+        tp = 1 if self.mesh is None else self.mesh.shape["tp"]
+        return {k: params[k] if self._dims.get(k) is None
+                else [replicas[t][k] for t in range(tp)] for k in keys}
+
+    def _gathered(self, leaves: dict) -> dict:
+        """`leaves` with each split leaf's shards concatenated on rank 0's
+        device."""
+        return {k: gather_leaf(k, v, self.device) if isinstance(v, list)
+                else v for k, v in leaves.items()}
+
+    def _new_state(self, params: dict, keys) -> TrainState:
+        """`params` with a zero Adam state over `keys` (on the shards)."""
+        replicas = self._replicate(params)
+        return TrainState(params, self.optimizer.init(
+            self._leaves(params, replicas, keys)), 0, replicas)
 
     # -- state ---------------------------------------------------------------
     def init_state(self, generator: torch.Generator | None = None
                    ) -> TrainState:
         """Fresh parameters with flax's initializers, drawn from
         `generator` (on the trainer's device), and a zero Adam state; on a
-        mesh, with the replicas."""
+        mesh, with the ranks' shards."""
         self.model.reset_parameters(generator)
         params = {k: v.detach().clone()
                   for k, v in self.model.state_dict().items()}
-        return TrainState(params, self.optimizer.init(params), 0,
-                          self._replicate(params))
+        return self._new_state(params, list(params))
 
     # -- data plane ----------------------------------------------------------
     def synthesize(self, n_frames: int, snr_db: torch.Tensor,
@@ -302,12 +375,15 @@ class Trainer:
 
     # -- loss ----------------------------------------------------------------
     def _rank_terms(self, params: dict, bits: torch.Tensor,
-                    rx_in: torch.Tensor, model: torch.nn.Module | None = None):
+                    rx_in: torch.Tensor, model: torch.nn.Module | None = None,
+                    tp: TensorParallel | None = None):
         """What the frames give the loss: (CE, confusion counts, further
         metrics) of `params` on one batch, through `model` (the trainer's
-        by default; a rank's copy on a mesh)."""
-        logits = first_output(functional_call(model or self.model, params,
-                                              (rx_in,)))
+        by default; a dp row's copy on a mesh), tensor parallel over `tp`'s
+        ranks where given."""
+        logits = first_output(functional_call(
+            model or self.model, params, (rx_in,),
+            None if tp is None else {"tp": tp}))
         ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
         conf = M.confusion_matrix(bits, M.bit_predictions(logits))
         return ce, conf, {}
@@ -357,42 +433,56 @@ class Trainer:
     def _mesh_step(self, state: TrainState, bits: list, rx_in: list,
                    extras: list, noise_pwr: torch.Tensor,
                    return_grads: bool = False):
-        """One data-parallel step on per-rank shards (`extras[r]`: further
-        arguments of rank r's `_rank_terms`).
+        """One mesh step on per-row shards of the frames (`extras[r]`:
+        further arguments of row r's `_rank_terms`).
 
-        Every rank runs the forward pass on its shard with its replica; the
-        confusion counts are summed over the ranks first, so the L2 term
-        takes the global BER as JAX's global-batch loss does; each rank's
-        backward pass runs on its CE weighted by its share of the frames;
-        the rank gradients are summed in rank order on rank 0's device, the
-        L2 term's gradient is added once, Adam runs once, and every replica
-        receives a copy of the new parameters (a reduce and a broadcast in
-        place of an all-reduce and replicated Adam: the same parameters)."""
-        dev0 = self.device
+        Every dp row runs the forward pass on its frames with its ranks'
+        parameters (tensor parallel over its tp ranks); the confusion
+        counts are summed over the rows first, so the L2 term takes the
+        global BER as JAX's global-batch loss does; each row's backward
+        pass runs on its CE weighted by its share of the frames; the rows'
+        gradients are summed in row order, a replicated leaf's on rank 0's
+        device, a split leaf's shard t on dp row 0's tp rank t; the L2
+        term's gradient is added once, Adam runs once (on the shards), and
+        every rank receives its part of the new parameters (a reduce and a
+        broadcast in place of an all-reduce and replicated Adam: the same
+        parameters)."""
+        mesh, dev0 = self.mesh, self.device
+        tp = mesh.shape["tp"]
         keys = self._grad_keys(state.params)
         total = sum(b.shape[0] for b in bits)
         ranks = []
-        for replica, b, x, extra in zip(state.replicas, bits, rx_in, extras):
-            params = dict(replica)
-            train = [params[k].detach().requires_grad_() for k in keys]
-            params.update(zip(keys, train))
+        for d, (b, x, extra) in enumerate(zip(bits, rx_in, extras)):
+            row = [dict(r) for r in state.replicas[d * tp:(d + 1) * tp]]
+            leaves = {}
+            for k in keys:
+                split = self._dims[k] is not None
+                for t in range(tp if split else 1):
+                    row[t][k] = row[t][k].detach().requires_grad_()
+                leaves[k] = [r[k] for r in row] if split else row[0][k]
+            ctx = (TensorParallel(row, mesh.tp_devices(d), self._dims)
+                   if self._tp else None)
             ce, conf, more = self._rank_terms(
-                params, b, x, model=self._rank_models[x.device], **extra)
-            ranks.append((train, ce * (b.shape[0] / total), conf, more))
+                row[0], b, x, model=self._rank_models[x.device], tp=ctx,
+                **extra)
+            ranks.append((flatten_leaves(leaves)[1],
+                          ce * (b.shape[0] / total), conf, more))
         ce = sum(w.detach().to(dev0) for _, w, _, _ in ranks)
         conf = sum(c.to(dev0) for _, _, c, _ in ranks)
-        grads = None
-        for train, w, _, _ in ranks:
-            g = [t.to(dev0) for t in torch.autograd.grad(
-                w, train, materialize_grads=True)]
-            grads = g if grads is None else torch._foreach_add(grads, g)
-        # the parameter term, once, on rank 0's copy (the CE is detached)
-        params = dict(state.params)
-        train = [params[k].detach().requires_grad_() for k in keys]
-        params.update(zip(keys, train))
+        # the parameter term, once, on dp row 0's leaves (the CE is
+        # detached)
+        params = self._leaves(state.params, state.replicas, state.params)
+        spec, train = flatten_leaves({k: params[k] for k in keys})
+        train = [t.detach().requires_grad_() for t in train]
+        params.update(unflatten_leaves(spec, train))
         loss, aux = self._global_terms(params, ce, conf)
-        grads = dict(zip(keys, torch._foreach_add(grads, torch.autograd.grad(
-            loss, train, materialize_grads=True))))
+        grads = None
+        for leaves, w, _, _ in ranks:
+            g = [g_.to(t.device) for g_, t in zip(torch.autograd.grad(
+                w, leaves, materialize_grads=True), train)]
+            grads = g if grads is None else torch._foreach_add(grads, g)
+        grads = unflatten_leaves(spec, torch._foreach_add(
+            grads, torch.autograd.grad(loss, train, materialize_grads=True)))
         aux = {k: v.detach() for k, v in aux.items()}
         for k in ranks[0][3]:
             aux[k] = sum(m[k].detach().to(dev0) * (b.shape[0] / total)
@@ -404,13 +494,16 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
     def _apply(self, state: TrainState, grads: dict) -> TrainState:
-        """The optimizer on the parameters that `grads` holds; any other
+        """The optimizer on the parameters that `grads` holds (a split
+        leaf's shards where its gradient is their list); any other
         parameter keeps its tensor."""
         updates, opt_state = self.optimizer.update(grads, state.opt_state)
-        keys = list(updates)
+        spec, upd = flatten_leaves(updates)
+        _, old = flatten_leaves(self._leaves(state.params, state.replicas,
+                                             updates))
         params = dict(state.params)
-        params.update(zip(keys, torch._foreach_add(
-            [state.params[k] for k in keys], [updates[k] for k in keys])))
+        params.update(self._gathered(unflatten_leaves(
+            spec, torch._foreach_add(old, upd))))
         return TrainState(params, opt_state, state.step + 1,
                           self._replicate(params))
 

@@ -56,11 +56,20 @@ def ber_from_confusion(conf: torch.Tensor):
     return torch.log(torch.clamp(ber, min=1e-12)), ber
 
 
-def l2_regularization(params: dict[str, torch.Tensor], scale: float = 0.01,
+def _sum_sq(v) -> torch.Tensor:
+    """||v||^2; for a leaf split over tp ranks (a list of its shards), the
+    shards' sums of squares added in rank order on the first's device."""
+    if isinstance(v, list):
+        return sum(torch.sum(s * s).to(v[0].device) for s in v)
+    return torch.sum(v * v)
+
+
+def l2_regularization(params: dict, scale: float = 0.01,
                       match: str = "Dense") -> torch.Tensor:
     """Sum of scale*||w||^2 over the `state_dict` entries whose name holds
     `match`: kernels and biases of the Dense layers, never `fft_like` (the
-    reference's `l2(0.01)` on every `tf.layers.dense`)."""
-    terms = [scale * torch.sum(v * v) for k, v in params.items()
-             if match in k]
-    return torch.stack(terms).sum()
+    reference's `l2(0.01)` on every `tf.layers.dense`).  An entry may be
+    the list of a split leaf's shards (each leaf counted once), on the
+    devices of its tp ranks; the sum is on the first entry's device."""
+    terms = [scale * _sum_sq(v) for k, v in params.items() if match in k]
+    return torch.stack([t.to(terms[0].device) for t in terms]).sum()

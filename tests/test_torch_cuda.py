@@ -775,3 +775,76 @@ def test_solve_iq_on_card_matches_cpu(cuda, b, n):
     torch.cuda.synchronize()
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("fn,chan,rate", [
+    ("rayleigh_channel_legacy", "ETU", 0.96e6),
+    ("rayleigh_channel_batch_coherent", "ETU", 1e7)])
+def test_legacy_channel_fir_on_card_bit_equal_to_plain(cuda, fn, chan, rate):
+    """One `fir_shift_accum` launch a legacy channel call (6 and 51 taps),
+    its FIR bit-equal to the kernel's plain version on the same planes."""
+    import numpy as np
+    import torch.nn.functional as F
+    from dl_ofdm_tpu_torch.channel import fir, legacy
+    g = torch.Generator(device=cuda).manual_seed(24)
+    b, l_out = 3000, 560
+    x = torch.randn(b, 7, 80, 2, device=cuda, generator=g)
+    coeff = torch.from_numpy(legacy.legacy_tap_coeff(chan, rate, l_out)).to(
+        cuda)
+    f = coeff.shape[0]
+    before = tpk.fir_shift_accum_kernel.launches
+    if fn == "rayleigh_channel_legacy":
+        taps = torch.randn(b, f, 2, device=cuda, generator=g)
+        y = legacy.rayleigh_channel_legacy(x, 64, chan, rate,
+                                           unit_taps=taps)[0]
+        h, off = taps / 2 ** 0.5 * coeff[None, :, None], (f - 1) // 2
+    else:
+        taps = torch.randn(f, 2, device=cuda, generator=g)
+        y = legacy.rayleigh_channel_batch_coherent(
+            x, torch.full((b,), 10.0, device=cuda), chan, rate,
+            unit_taps=taps, unit_noise=torch.zeros(b, l_out, 2,
+                                                   device=cuda))[0]
+        h = torch.flip(taps / 2 ** 0.5 * coeff[:, None], (0,))[None].expand(
+            b, f, 2)
+        off = f - 1 - (f - 1) // 2
+    torch.cuda.synchronize()
+    assert tpk.fir_shift_accum_kernel.launches == before + 1
+    flat = x.reshape(b, l_out, 2)
+    xa = [fir._prealign_plane(F.pad(flat[..., i], (f - 1, f - 1)),
+                              np.full((b,), off), l_out + f - 1).contiguous()
+          for i in (0, 1)]
+    wr, wi = tpk.fir_shift_accum_ref(*xa, h[..., 0].contiguous(),
+                                     h[..., 1].contiguous(), l_out)
+    assert torch.equal(y.reshape(b, l_out, 2), torch.stack([wr, wi], -1))
+
+
+def test_tensor_parallel_gradients_on_card(cuda):
+    """nfft 256 on dp 2 x tp 2 virtual ranks of the card: the mesh step's
+    gradients (split leaves gathered) against the single-device ones on
+    the same batch, rtol 2e-4, atol 1e-6 (`tests/test_parallel.py:312`);
+    `fft_like` runs the float32 kernel once a rank."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg = OFDMConfig(nbits=1, nfft=256, nfilter=256)
+    tc = TrainConfig(snr=5.0, batch_size=112, msg_length=224)
+    tr = Trainer(cfg, tc, channel="ETU", mesh=make_mesh([cuda] * 4, dp=2,
+                                                        tp=2))
+    single = Trainer(cfg, tc, channel="ETU", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    state = tr.init_state(g)
+    b = tr.batch_frames
+    bits, rx, _, _, _ = single.synthesize(b, torch.full((b,), 5.0,
+                                                        device=cuda), g)
+    before = tpk.complex_dense_kernel.launches
+    tb, tx = shard_batch(tr.mesh, (bits, rx))
+    _, aux = tr._mesh_step(state, tb, tx, [{}] * 2,
+                           torch.tensor(0.0, device=cuda), return_grads=True)
+    torch.cuda.synchronize()
+    assert tpk.complex_dense_kernel.launches == before + 4
+    got = tr._gathered(aux["grads"])
+    train = {k: v.clone().requires_grad_() for k, v in state.params.items()}
+    loss, _ = single._loss_fn(train, bits, rx)
+    want = dict(zip(train, torch.autograd.grad(loss, list(train.values()))))
+    for k, w in want.items():
+        torch.testing.assert_close(got[k], w, rtol=2e-4, atol=1e-6, msg=k)

@@ -269,10 +269,17 @@ def test_equalizer_trainer_steps_keep_the_receiver_frozen(tmp_path):
     tt.fit(max_epochs=1, ckpt_dir=str(tmp_path), ckpt_every=1,
            log_fn=lambda *a: None)
     assert os.path.isfile(tmp_path / "resume" / "state.npz")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(),
-                         mesh=make_mesh(["cpu"] * 2, dp=1, tp=2),
-                         device="cpu")
+    # tensor parallelism (ROADMAP.md Queue A item 12), which raised
+    # before it was ported: a step on dp 1 x tp 2, the receiver frozen
+    tp = EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(
+        snr=10.0, batch_size=28, msg_length=28, opt=12),
+        channel="mixRayleigh", pretrained_rx=base,
+        mesh=make_mesh(["cpu"] * 2, dp=1, tp=2), device="cpu")
+    st, aux = tp.train_step_curriculum(tp.init_state(g), g)
+    assert np.isfinite(float(aux["loss"])) and st.step == 1
+    for k, v in st.params.items():
+        if k.startswith("receiver."):
+            assert torch.equal(v, base[k[len("receiver."):]]), k
 
 
 def test_equalizer_trainer_fit_and_unfrozen_receiver():

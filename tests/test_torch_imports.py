@@ -46,12 +46,16 @@ def test_port_files_found():
     "baselines/__init__.py", "baselines/pdp.py", "baselines/interp.py",
     "baselines/cp_enhanced.py", "baselines/matlab_link.py",
     "baselines/estimators.py", "baselines/classical_rx.py",
-    "eval/mat_export.py", "eval/mat_eval.py", "eval/plots.py"])
+    "eval/mat_export.py", "eval/mat_eval.py", "eval/plots.py",
+    "ofdm/papr.py", "ofdm/legacy_tx.py", "channel/awgn.py",
+    "channel/legacy.py", "models/dccn.py", "models/e2e_blocks.py",
+    "parallel/mesh.py", "parallel/tp.py"])
 def test_equalizer_stage_modules_are_scanned(module):
     """The equalizer stage's modules, the entry points (CLI, runner,
-    checkpoints, utils), the classical baselines and the rest of eval are
-    among the files the import scan reads, and import without JAX's
-    modules being reached."""
+    checkpoints, utils), the classical baselines, the rest of eval, the
+    ablation and legacy paths and tensor parallelism are among the files
+    the import scan reads, and import without JAX's modules being
+    reached."""
     path = os.path.join(ROOT, "dl_ofdm_tpu_torch", module)
     assert path in PORT_FILES
     import importlib

@@ -3,7 +3,8 @@
 against the Pallas `_dma_ring_exchange` (interpret mode), the halo FIR
 with both exchanges, the dp gradients, the mesh train step and `fit`, the
 equalizer stage on a mesh, both mesh sweep protocols, the scaling harness,
-and the refusal of tp > 1.
+and the entry points on a mesh with tp > 1 (`tests/test_torch_tp.py` holds
+tensor parallelism to JAX).
 
 The JAX side runs on the 8 virtual CPU devices of `tests/conftest.py`, as
 `tests/test_parallel.py` does; the port lists the CPU once per rank.
@@ -473,15 +474,68 @@ def test_scaling_efficiency_harness_on_cpu_ranks():
 @pytest.mark.parametrize("entry", ["Trainer", "EqualizerTrainer", "ber_sweep",
                                    "shard_params"])
 def test_tensor_parallel_mesh_raises(entry, sweep_trainer):
-    mesh = _cpu_mesh(2, tp=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        if entry == "Trainer":
-            _trainer(mesh)
-        elif entry == "EqualizerTrainer":
-            EqualizerTrainer(OFDMConfig(nbits=1), TrainConfig(opt=0),
-                             device="cpu", mesh=mesh)
-        elif entry == "ber_sweep":
-            tsweep.ber_sweep(sweep_trainer, torch.Generator(), snrs=(0,),
-                             frames_per_point=8, batch_frames=8, mesh=mesh)
-        else:
-            tmesh.shard_params(mesh, {"a": torch.zeros(2)})
+    """The four entry points that raised on tp > 1 before tensor
+    parallelism was ported (ROADMAP.md Queue A item 12) now run on a
+    dp 2 x tp 2 mesh and match the dp-only mesh: the trainer's gradients
+    on one batch (split leaves gathered), the equalizer stage's metrics
+    on one curriculum step from the same generator, the sweep bit for
+    bit, and the shards (`tests/test_torch_tp.py` holds them to JAX)."""
+    mesh, dp = _cpu_mesh(2, tp=2), _cpu_mesh(2)
+    if entry == "Trainer":
+        tts = [_trainer(m) for m in (mesh, dp)]
+        params = tts[1].init_state(torch.Generator().manual_seed(0)).params
+        b = tts[0].batch_frames
+        g = torch.Generator().manual_seed(1)
+        bits = torch.randint(0, 2, (b, tts[0].plan.frame_size, 1),
+                             generator=g, dtype=torch.int32)
+        rx = torch.randn(b, 7, 80, 2, generator=g)
+        grads = []
+        for tt, m in zip(tts, (mesh, dp)):
+            tb, tr = tmesh.shard_batch(m, (bits, rx))
+            _, aux = tt._mesh_step(tt._new_state(params, list(params)), tb,
+                                   tr, [{}] * 2, torch.tensor(0.0),
+                                   return_grads=True)
+            grads.append(tt._gathered(aux["grads"]))
+        assert isinstance(aux["grads"]["fft_like.wr"], torch.Tensor)
+        for k in params:
+            np.testing.assert_allclose(grads[0][k].numpy(),
+                                       grads[1][k].numpy(), rtol=2e-4,
+                                       atol=2e-5, err_msg=k)
+    elif entry == "EqualizerTrainer":
+        rx_params = sweep_trainer.model.state_dict()
+        tc = TrainConfig(snr=5.0, batch_size=56, msg_length=112, opt=0)
+        out = []
+        for m in (mesh, dp):
+            tt = EqualizerTrainer(OFDMConfig(nbits=1), tc, channel="EPA",
+                                  pretrained_rx=rx_params, device="cpu",
+                                  mesh=m)
+            g = torch.Generator().manual_seed(3)
+            out.append(tt.train_step_curriculum(tt.init_state(g), g))
+        (st_tp, aux_tp), (st_dp, aux_dp) = out
+        for k in ("ce", "snr_mse", "chan_mse", "loss"):
+            np.testing.assert_allclose(float(aux_tp[k]), float(aux_dp[k]),
+                                       rtol=1e-5, err_msg=k)
+        for k, v in rx_params.items():
+            assert torch.equal(st_tp.params[f"receiver.{k}"], v), k
+    elif entry == "ber_sweep":
+        res = [tsweep.ber_sweep(sweep_trainer, torch.Generator().manual_seed(4),
+                                snrs=(0,), frames_per_point=16,
+                                batch_frames=8, mesh=m, log_fn=lambda *a: None)
+               for m in (mesh, dp)]
+        assert np.array_equal(res[0].ber, res[1].ber)
+        assert np.array_equal(res[0].loss, res[1].loss)
+    else:
+        params = {"fft_like.wr": torch.arange(12.0).reshape(3, 4),
+                  "a": torch.ones(3)}
+        shards = tmesh.shard_params(mesh, params)
+        assert len(shards) == 4
+        for r, rank in enumerate(shards):
+            assert torch.equal(rank["fft_like.wr"],
+                               params["fft_like.wr"][:, 2 * (r % 2):
+                                                     2 * (r % 2) + 2])
+            assert torch.equal(rank["a"], params["a"])
+        dims = tmesh.shard_dims(mesh, params)
+        back = tmesh.gather_params(mesh, shards, dims)
+        assert all(torch.equal(back[k], v) for k, v in params.items())
+        reps = tmesh.shard_params(dp, params)
+        assert torch.equal(reps[1]["fft_like.wr"], params["fft_like.wr"])

@@ -241,6 +241,22 @@ Phases, each printed with its elapsed seconds:
     (the same trainer on the CPU) within twice the single-device float32
     gradients', the receiver frozen; d. a resumed fit on dp 2 x tp 2 at
     nfft 256 (2 + 2 epochs against 4) bit-identical.
+26. multi-process data parallelism (`torch.multiprocessing`, spawn): on
+    one card two processes sharing it over gloo, named explicitly after
+    NCCL is shown to refuse two ranks on one card; on two or more cards
+    NCCL, one process a card.  a. `bench.py`'s configuration at 9,362
+    frames on dp 2 for 10 steps against the one-process dp-2 mesh from
+    the same seeds: bit-identical or each leaf's worst difference, each
+    step's loss within 1e-4, ms a step beside the one-process step, one
+    `fir_shift_accum` and one `complex_dense` launch a process a step;
+    b. the 16QAM arm's interleaved sweep (48 frames a point and rank, as
+    4b) with counts equal to the one-process mesh's and the curve against
+    JAX's; c. the halo FIR of 19c cut over the two processes, the ring
+    through CUDA IPC (and 'ppermute' over NCCL), bit-equal to
+    `fir_same_iq`, ms a call of the ring and the FIR from CUDA events and
+    the host clock; d. with four cards, NCCL at 4 processes dp 4 and 2
+    processes x 2 cards dp 2 x tp 2 against their one-process meshes.  A
+    failed worker fails the run after every worker's error is printed.
  5. (printed last) one `{"kernels": [...]}` line with all seven kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
@@ -249,7 +265,10 @@ Phases, each printed with its elapsed seconds:
     `philox_probe` from phase 12, of `fir_shift_accum` from phases 14, 15
     and 19 and 23 (with the baseline shape's numbers) and 24a
     (`launches_legacy`, with the legacy shapes' numbers), of
-    `ring_exchange` from phase 19c; `complex_dense` and
+    `ring_exchange` from phase 19c, with its launches across processes
+    and their times from phase 26c; `complex_dense` and
+    `fir_shift_accum` with `launches_multiprocess` from phase 26;
+    `complex_dense` and
     `pack_stacked_weight` with `launches_tp` from phases 25a-b and the tp
     shapes' numbers), then as the last line
     `{"ok": true, "device": {...}}`.
@@ -2282,6 +2301,382 @@ CLI_ARGS = ["--nfft", "512", "--nfilter", "512", "--compute_dtype",
             "Big512"]
 
 
+# -- 26. multi-process data parallelism ---------------------------------------
+
+PROC_N = 2                          # processes of phase 26a-c
+PROC_STEPS = 10                     # dp steps (the first one untimed)
+# 48 frames a point and rank, as JAX's single-device call's 1,968 / 41
+# (the per-point moments are taken over them: a wider group moves the curve)
+PROC_SWEEP_BATCH = 48 * 41 * PROC_N
+PROC_HALO_CALLS = 20
+PROC_TIMEOUT_S = 180                # a collective waits this long, then fails
+
+
+def proc_devices(rank: int, per_proc: int) -> list:
+    """The cards of process `rank`: its own `per_proc` cards where the
+    machine has one a process, else card 0 for every process."""
+    import torch
+    n = torch.cuda.device_count()
+    first = rank * per_proc if n >= per_proc * (rank + 1) else 0
+    return [torch.device("cuda", first + i if n > 1 else 0)
+            for i in range(per_proc)]
+
+
+def proc_train(mesh, dev) -> dict:
+    """`bench.py`'s configuration (nbits 1, nfft 64, 64 filters, ETU
+    static, 5 dB) at 9,362 frames on `mesh` for PROC_STEPS steps on the
+    plain data plane from seed 26: this process's launches, ms a step
+    (steps 2-10, host clock around a synchronize), each step's loss and
+    the parameters (on the host)."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=65534),
+                 channel="ETU", mesh=mesh)
+    frames = tr.batch_frames
+    want = 9362 + (-9362) % mesh.shape["dp"]
+    if frames != want or tr._use_fused_model:
+        raise AssertionError(f"dp trainer: {frames} frames; want {want}")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    state = tr.init_state(gen)
+    snr = torch.full((frames,), 5.0, device=dev)
+    torch.cuda.synchronize(dev)
+    tpk.fir_shift_accum_kernel.launches = 0
+    tpk.complex_dense_kernel.launches = 0
+    losses = []
+    for i in range(PROC_STEPS):
+        if i == 1:
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+        state, aux = tr.train_step(state, gen, snr)
+        losses.append(aux["loss"])
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t) * 1e3 / (PROC_STEPS - 1)
+    if mesh.shape["tp"] == 1 and not all(
+            torch.equal(rep[k].to(dev), state.params[k])
+            for rep in state.replicas for k in rep):
+        raise AssertionError("dp replicas differ after the steps")
+    return {"frames": frames, "ms_per_step": ms,
+            "losses": [float(v) for v in losses],
+            "fir_shift_accum": tpk.fir_shift_accum_kernel.launches,
+            "complex_dense": tpk.complex_dense_kernel.launches,
+            "params": {k: v.cpu() for k, v in state.params.items()}}
+
+
+def proc_sweep(mesh, dev) -> dict:
+    """The 16QAM arm's interleaved sweep (-10..30 dB, 20,000 frames a
+    point, PROC_SWEEP_BATCH frames a call, seed 999) on `mesh`."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import ber_sweep
+    from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=4), TrainConfig(), channel="AWGN",
+                 device=dev)
+    tr.model.load_state_dict(params_from_flax(load_params_npz(ARM)))
+    torch.cuda.synchronize(dev)
+    tpk.complex_dense_kernel.launches = 0
+    t = time.time()
+    res = ber_sweep(tr, torch.Generator(device=dev).manual_seed(999),
+                    snrs=SNRS, frames_per_point=20000,
+                    batch_frames=PROC_SWEEP_BATCH, log_fn=lambda *a: None,
+                    mesh=mesh)
+    torch.cuda.synchronize(dev)
+    return {"ber": res.ber, "loss": res.loss, "seconds": time.time() - t,
+            "complex_dense": tpk.complex_dense_kernel.launches}
+
+
+def proc_halo(mesh, dev, backend: str) -> dict:
+    """Phase 19c's halo FIR (64 x 1,146,880 samples, 13 taps, offset 6)
+    cut over the mesh's ranks across the processes, exchange 'dma' (and
+    'ppermute' over NCCL): each process's output shards bit-equal to its
+    slices of `fir_same_iq` of the whole block; the ring's launches; ms a
+    call of the halo FIR and of the ring alone from CUDA events and from
+    the host clock."""
+    import torch
+    from dl_ofdm_tpu_torch.channel.fir import fir_same_iq
+    from dl_ofdm_tpu_torch.parallel import distributed as pd
+    from dl_ofdm_tpu_torch.parallel import halo
+    gen = torch.Generator(device=dev).manual_seed(191)
+    x = torch.randn(HALO_B, HALO_FRAMES * FIR_LEN, 2, device=dev,
+                    generator=gen)
+    h = torch.randn(HALO_B, HALO_TAPS, 2, device=dev, generator=gen)
+    p = mesh.devices.size
+    whole = torch.chunk(fir_same_iq(x, h, np.full(HALO_B, 6)), p, dim=1)
+    shards = list(torch.chunk(x, p, dim=1))
+    local = [shards[r].to(d) for r, d in zip(
+        mesh.local_ranks, [mesh.rank_devices[r] for r in mesh.local_ranks])]
+    h = h.to(local[0].device)
+    out = {"equal": {}}
+    torch.cuda.synchronize(dev)
+    halo.ring_exchange_across.launches = 0
+    exchanges = ("dma", "ppermute") if backend == "nccl" else ("dma",)
+    for ex in exchanges:
+        y = halo.halo_fir_same_iq(local, h, 6, mesh, exchange=ex)
+        out["equal"][ex] = all(torch.equal(a, whole[r].to(a.device))
+                               for a, r in zip(y, mesh.local_ranks))
+    torch.cuda.synchronize(dev)
+    out["launches"] = halo.ring_exchange_across.launches
+    lt = [s[:, -6:, :] for s in local]
+    rh = [s[:, :6, :] for s in local]
+    fns = {"halo_fir": lambda: halo.halo_fir_same_iq(local, h, 6, mesh,
+                                                     exchange="dma"),
+           "ring": lambda: halo.ring_exchange_across(lt, rh, mesh)}
+    for name, fn in fns.items():
+        pd.barrier(dev)
+        out[f"{name}_ms"] = events_ms(fn, PROC_HALO_CALLS)
+        pd.barrier(dev)
+        t = time.perf_counter()
+        for _ in range(PROC_HALO_CALLS):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[f"{name}_host_ms"] = (time.perf_counter() - t) * 1e3 \
+            / PROC_HALO_CALLS
+    # what the ring moved, read once and written once
+    out["bytes"] = 2 * 2 * p * HALO_B * 6 * 2 * 4
+    return out
+
+
+def proc_worker(rank: int, world: int, port: int, work: str, backend: str,
+                per_proc: int, tp: int, parts: tuple) -> None:
+    """One process of phase 26: joins the group, builds its view of the
+    mesh, runs `parts` and saves what it saw to `work/rank<r>.pt`; an
+    error is written to `work/error<r>.txt` before it propagates."""
+    import datetime
+    import traceback
+    import torch
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from dl_ofdm_tpu_torch.parallel import distributed as pd
+        from dl_ofdm_tpu_torch.parallel import halo
+        from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+        devs = proc_devices(rank, per_proc)
+        try:
+            info = pd.initialize_multihost(
+                f"127.0.0.1:{port}", world, rank, backend=backend,
+                device=devs[0],
+                timeout=datetime.timedelta(seconds=PROC_TIMEOUT_S))
+        except RuntimeError as e:
+            if "refusal" not in parts:
+                raise
+            torch.save({"refused": str(e)}, os.path.join(work,
+                                                         f"rank{rank}.pt"))
+            return
+        if "refusal" in parts:
+            raise AssertionError(f"{backend} with two ranks on {devs[0]} "
+                                 "was not refused")
+        mesh = make_mesh(devs, tp=tp)
+        out = {"backend": info.backend, "devices": [str(d) for d in devs],
+               "local_rows": mesh.local_rows}
+        if "train" in parts:
+            out["train"] = proc_train(mesh, devs[0])
+        if "sweep" in parts:
+            out["sweep"] = proc_sweep(mesh, devs[0])
+        if "halo" in parts:
+            out["halo"] = proc_halo(mesh, devs[0], info.backend)
+            halo.release_rings()
+        pd.barrier(devs[0])
+        pd.shutdown()
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(work, f"error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_procs(world: int, backend: str, per_proc: int = 1, tp: int = 1,
+              parts: tuple = ("train",)) -> list:
+    """`world` processes of `proc_worker` (torch.multiprocessing, spawn,
+    join=True); every worker's result.  A failed worker fails the phase
+    after every worker's error has been printed."""
+    import socket
+    import torch
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            mp.spawn(proc_worker, args=(world, port, work, backend, per_proc,
+                                        tp, parts),
+                     nprocs=world, join=True)
+        except Exception as e:
+            for r in range(world):
+                path = os.path.join(work, f"error{r}.txt")
+                if os.path.exists(path):
+                    log(f"phase 26 worker {r} failed:\n{open(path).read()}")
+                else:
+                    log(f"phase 26 worker {r}: no error of its own "
+                        "(stopped with the others)")
+            raise AssertionError(f"phase 26: a worker of {world} failed "
+                                 f"({backend}, parts {parts})") from e
+        return [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def compare_params(got: dict, want: dict) -> dict:
+    """Each leaf's worst |difference| (0 where bit-identical)."""
+    return {k: float((got[k] - want[k]).abs().max()) for k in want}
+
+
+def phase_processes(dev) -> dict:
+    """Phase 26: multi-process data parallelism.  One card: two
+    processes on it with gloo named explicitly (NCCL refuses two ranks on
+    one card, shown first); two or more cards: NCCL, one process a card.
+    a. the dp-2 train step at 9,362 frames for 10 steps against the
+    one-process dp-2 mesh from the same seeds (bit-identical or each
+    leaf's worst difference, each step's loss within 1e-4, ms a step,
+    each process's launches); b. the 16QAM arm's interleaved sweep
+    against the one-process mesh's counts (equal) and JAX's curve; c. the
+    halo FIR across the processes with the ring's IPC route, bit-equal to
+    `fir_same_iq`; d. with four cards, NCCL at 4 processes dp 4 and 2
+    processes x 2 cards at dp 2 x tp 2, each against its one-process
+    mesh.  Returns the kernels-line fields."""
+    import torch
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    if n >= PROC_N:
+        backend, why = "nccl", "one process a card"
+    else:
+        backend = "gloo"
+        why = ("two processes share one card, which NCCL refuses; gloo "
+               "takes card tensors in all_reduce and broadcast, and the "
+               "halo's ring runs through CUDA IPC")
+        refused = run_procs(PROC_N, "nccl", parts=("refusal",))
+        if not all("same card" in r.get("refused", "") for r in refused):
+            raise AssertionError(f"two NCCL ranks on one card: {refused}")
+        log(f"phase 26: NCCL with two ranks on one card refused in both "
+            f"processes: {refused[0]['refused']!r}")
+    log(f"phase 26: {PROC_N} processes, backend {backend} ({why})")
+    procs = run_procs(PROC_N, backend, parts=("train", "sweep", "halo"))
+    # the one-process dp-2 mesh: virtual ranks of the card, or one rank a
+    # card where there are two
+    single_devs = [torch.device("cuda", r if n >= PROC_N else 0)
+                   for r in range(PROC_N)]
+    one = proc_train(make_mesh(single_devs, dp=PROC_N), dev)
+    diffs = [compare_params(p["train"]["params"], one["params"])
+             for p in procs]
+    identical = all(v == 0 for d in diffs for v in d.values())
+    loss_err = max(abs(a - b) / abs(b) for p in procs
+                   for a, b in zip(p["train"]["losses"], one["losses"]))
+    for d in diffs:
+        if not all(np.isfinite(v) for v in d.values()):
+            raise AssertionError(f"phase 26a: non-finite parameters {d}")
+    if loss_err > 1e-4:
+        raise AssertionError(f"phase 26a: a step's loss {loss_err:.3g} "
+                             "from the one-process mesh's")
+    want = {"fir_shift_accum": PROC_STEPS, "complex_dense": PROC_STEPS}
+    for r, p in enumerate(procs):
+        got = {k: p["train"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"phase 26a process {r}: launches {got}, "
+                                 f"want {want} (one a local row a step)")
+    ms = [p["train"]["ms_per_step"] for p in procs]
+    log(f"26a dp-2 step at 9,362 frames over {PROC_N} processes "
+        f"({backend}): {max(ms):.3f} ms/step (processes {ms}) against "
+        f"{one['ms_per_step']:.3f} in one process; parameters after "
+        f"{PROC_STEPS} steps bit-identical: {identical}; worst leaf "
+        f"differences {max(diffs[0].values()):.3g}; losses within "
+        f"{loss_err:.3g}; launches a process {want}")
+    print(json.dumps({"phase": 26, "part": "dp train step",
+                      "backend": backend, "processes": PROC_N,
+                      "frames": one["frames"], "steps": PROC_STEPS,
+                      "ms_per_step": ms,
+                      "one_process_ms_per_step": one["ms_per_step"],
+                      "bit_identical": identical,
+                      "leaf_max_abs_diff": diffs,
+                      "loss_rel_err": loss_err,
+                      "launches": [{k: p["train"][k] for k in want}
+                                   for p in procs]}), flush=True)
+    # b. the sweep
+    sweep_one = proc_sweep(make_mesh(single_devs, dp=PROC_N), dev)
+    calls = 20000 // (48 * PROC_N)
+    for r, p in enumerate(procs):
+        s = p["sweep"]
+        if not np.array_equal(s["ber"], sweep_one["ber"]):
+            raise AssertionError(f"26b process {r}: counts differ from the "
+                                 "one-process mesh's")
+        if s["complex_dense"] != calls:
+            raise AssertionError(f"26b process {r}: complex_dense "
+                                 f"{s['complex_dense']} launches, want "
+                                 f"{calls}")
+    check_curve("2-process interleaved", procs[0]["sweep"]["ber"],
+                JAX_INTERLEAVED_BER, "JAX")
+    ce_equal = all(np.array_equal(p["sweep"]["loss"], sweep_one["loss"])
+                   for p in procs)
+    log(f"26b interleaved sweep over {PROC_N} processes: counts equal to "
+        f"the one-process mesh's; CE equal {ce_equal}; "
+        f"{procs[0]['sweep']['seconds']:.3f} s against "
+        f"{sweep_one['seconds']:.3f} s; complex_dense {calls} launches a "
+        "process")
+    print(json.dumps({"phase": 26, "part": "interleaved sweep",
+                      "processes": PROC_N, "calls": calls,
+                      "seconds": [p["sweep"]["seconds"] for p in procs],
+                      "one_process_seconds": sweep_one["seconds"],
+                      "counts_equal": True, "ce_equal": ce_equal,
+                      "ratio_to_jax": ratios(procs[0]["sweep"]["ber"],
+                                             JAX_INTERLEAVED_BER)}),
+          flush=True)
+    # c. the halo FIR
+    halos = [p["halo"] for p in procs]
+    for r, hh in enumerate(halos):
+        if not all(hh["equal"].values()):
+            raise AssertionError(f"26c process {r}: halo FIR differs from "
+                                 f"fir_same_iq: {hh['equal']}")
+        if hh["launches"] != 1:                 # the 'dma' exchange
+            raise AssertionError(f"26c process {r}: ring launched "
+                                 f"{hh['launches']} times")
+    ring = {"launches_across_processes": sum(hh["launches"] for hh in halos),
+            "across_processes_ms": max(hh["ring_ms"] for hh in halos),
+            "across_processes_host_ms": max(hh["ring_host_ms"]
+                                            for hh in halos),
+            "across_processes_halo_fir_ms": max(hh["halo_fir_ms"]
+                                                for hh in halos),
+            "across_processes_bound_ms": halos[0]["bytes"] / card_peaks(
+                torch.cuda.get_device_name(0))[1][0] * 1e3,
+            "across_processes_backend": backend}
+    log(f"26c halo FIR across {PROC_N} processes, exchanges "
+        f"{list(halos[0]['equal'])}: bit-equal to fir_same_iq; the ring "
+        f"(IPC, handshake) {ring['across_processes_ms']:.4f} ms a call "
+        f"(events; host clock {ring['across_processes_host_ms']:.4f}), the "
+        f"halo FIR {ring['across_processes_halo_fir_ms']:.3f} ms; "
+        f"{ring['launches_across_processes']} ring launches")
+    print(json.dumps({"phase": 26, "part": "halo across processes",
+                      "processes": PROC_N, "backend": backend,
+                      "per_process": halos}), flush=True)
+    # d. four cards
+    if n >= 4:
+        for world, per, tp in ((4, 1, 1), (2, 2, 2)):
+            runs = run_procs(world, "nccl", per_proc=per, tp=tp)
+            ref = proc_train(make_mesh([torch.device("cuda", i)
+                                        for i in range(4)], tp=tp), dev)
+            d = [compare_params(p["train"]["params"], ref["params"])
+                 for p in runs]
+            same = all(v == 0 for x in d for v in x.values())
+            ms4 = [p["train"]["ms_per_step"] for p in runs]
+            log(f"26d NCCL {world} processes x {per} card(s), dp "
+                f"{4 // tp} x tp {tp}: {max(ms4):.3f} ms/step against "
+                f"{ref['ms_per_step']:.3f} in one process; bit-identical "
+                f"{same}, worst {max(max(x.values()) for x in d):.3g}")
+            print(json.dumps({"phase": 26, "part": "four cards",
+                              "processes": world, "cards_a_process": per,
+                              "tp": tp, "ms_per_step": ms4,
+                              "one_process_ms_per_step": ref["ms_per_step"],
+                              "bit_identical": same}), flush=True)
+    else:
+        log(f"26d not run: {n} card(s)")
+    return {"ring": ring,
+            "fir_shift_accum": sum(p["train"]["fir_shift_accum"]
+                                   for p in procs),
+            "complex_dense": sum(p["train"]["complex_dense"]
+                                 + p["sweep"]["complex_dense"]
+                                 for p in procs)}
+
+
 def big512_config():
     from dl_ofdm_tpu_torch.config import OFDMConfig
     return OFDMConfig(nbits=1, nfft=512, nfilter=512,
@@ -3930,6 +4325,9 @@ def main() -> None:
     ring = phase_halo(tpk, dev, hbm_bps)
     phase_halo_cross_card()
 
+    # -- 26. multi-process data parallelism (before the profiled phases) -----
+    procs = phase_processes(dev)
+
     # -- 20-22. the bf16 receiver, the nfft-512 arm, the CLI ----------------
     bf16 = phase_cdense_bf16(tpk, dev, hbm_bps, peak_key)
     big = phase_serve_big512(tpk, dev)
@@ -3990,6 +4388,7 @@ def main() -> None:
          "launches_dp_training": launches_mesh["fir_shift_accum"],
          "launches_halo": ring["fir_launches"],
          "launches_baseline": baseline["launches"],
+         "launches_multiprocess": procs["fir_shift_accum"],
          **fir_line,
          **{f"baseline_shape_{k}": base_fir["baseline"][k] for k in (
              "rows", "outputs", "taps", "kernel_ms", "plain_ms",
@@ -3999,13 +4398,14 @@ def main() -> None:
          "source": "dl_ofdm_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "dl_ofdm_tpu/parallel/halo.py:62",
          **{k: v for k, v in ring.items() if k != "fir_launches"},
-         "check": "pass"}]
+         **procs["ring"], "check": "pass"}]
     kernels[0].update(
         launches_equalizer_serving=launches_serve["complex_dense"],
         launches_equalizer_training=launches_eq["complex_dense"],
         launches_bf16=big["launches_bf16"],
         launches_bf16_cli=cli_run["launches_bf16"], **bf16["complex_dense"],
         launches_tp=tp_big["launches"],
+        launches_multiprocess=procs["complex_dense"],
         launches_bf16_tp=tp_512["launches_bf16"],
         tp_shapes={"x".join(map(str, sh["shape"])) + f" {sh['mode']}": {
             k: sh[k] for k in ("kernel_ms", "plain_ms", "library_ms",

@@ -41,6 +41,9 @@ from __future__ import annotations
 
 import torch
 
+from dl_ofdm_tpu_torch.config import (  # noqa: F401
+    OFDMConfig, ChannelConfig, TrainConfig)
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks for

@@ -79,3 +79,15 @@ def jakes_gains_iq(fd: torch.Tensor, t: torch.Tensor, n_taps: int,
     times t [S] (s), with phases drawn from `generator`."""
     th_re, th_im = jakes_phases(fd.shape[0], n_taps, generator, fd.device)
     return jakes_gains_from_phases(th_re, th_im, fd, t, n_taps)
+
+
+def jakes_gains(fd: torch.Tensor, t: torch.Tensor, n_taps: int,
+                generator: torch.Generator | None = None,
+                theta: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """Complex-dtype wrapper of `jakes_gains_iq` (CPU/tests only):
+    complex64 [B, S, n_taps], from `generator`'s phases or the given
+    `theta` = (th_re, th_im) [B, SS, n_taps]."""
+    z = (jakes_gains_iq(fd, t, n_taps, generator) if theta is None
+         else jakes_gains_from_phases(*theta, fd, t, n_taps))
+    return torch.complex(z[..., 0], z[..., 1])

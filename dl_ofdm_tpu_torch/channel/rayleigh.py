@@ -164,3 +164,15 @@ class RayleighChannel:
         h_freq = cfloat.dft_iq(gt_s, self.nfft)         # [B, S, nfft, 2]
         y_dop = fir.fir_per_symbol_iq(tx, gt_s, self.max_taps, offsets)
         return ChannelOut(y=torch.where(dop, y_dop, y), h_freq=h_freq)
+
+    # -- complex-dtype convenience wrapper (CPU/tests only) -----------------
+    def apply_complex(self, tx_c: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      zck: torch.Tensor | None = None,
+                      theta: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> ChannelOut:
+        """`__call__` on complex frames [B, S, n_sc]: complex64 y and
+        h_freq (`rayleigh.py:209-213`); the draws as for `__call__`."""
+        out = self(cfloat.from_complex(tx_c), generator, zck=zck, theta=theta)
+        return ChannelOut(y=cfloat.to_complex(out.y),
+                          h_freq=cfloat.to_complex(out.h_freq))

@@ -52,6 +52,17 @@
 // (a partner never launched), so a broken caller gets an error, not a
 // hung card.
 //
+// Across processes (each process one or more "cards" of the ring, two
+// processes possibly on one physical card) the handshake template serves
+// as it stands: each process launches its own cards' blocks on its own
+// stream.  The receive buffers and handshake words a partner writes must
+// then live in memory the partner can map, so the host allocates them
+// here (`ring_ipc_alloc`, zeroed, with its `cudaIpcMemHandle_t`) rather
+// than from PyTorch's caching allocator, whose handles would cover a
+// block's base, not a tensor; each partner maps them with
+// `ring_ipc_open`.  Two processes on one card are two contexts that the
+// card time-slices, so a side's spin waits for its partner's slice.
+//
 // What bounds it: its bytes are a few kB (at the halo path's width 64 rows
 // x 6 samples x 8 bytes each way and rank), far under a microsecond of
 // HBM; the launch latency sets the copy template's time, the launch and
@@ -60,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
+#include <string.h>
 
 #define RING_MAX_RANKS 16
 #define RING_SPIN_LIMIT_NS 10000000000ull   // 10 s
@@ -236,4 +248,58 @@ extern "C" int ring_enable_peer(int dev, int peer, int* can) {
 extern "C" int ring_empty_launch(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
+}
+
+// -- memory shared across processes (CUDA IPC) --------------------------------
+
+// Allocate `bytes` on `device`, zeroed (and the zeros landed before this
+// returns, so no partner's first store can be overwritten), and write its
+// IPC handle (CUDA_IPC_HANDLE_SIZE = 64 bytes) to `handle`.
+extern "C" int ring_ipc_alloc(int device, long long bytes, void** ptr,
+                              void* handle) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  *ptr = nullptr;
+  err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (err != cudaSuccess && *ptr != nullptr) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return err != cudaSuccess ? err : back;
+}
+
+// Map another process's allocation (its `ring_ipc_alloc` handle) into
+// this one, reached from `device` (peer access enabled where it lives on
+// another card).
+extern "C" int ring_ipc_open(int device, const void* handle, void** ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  const cudaError_t back = cudaSetDevice(prev);
+  return err != cudaSuccess ? err : back;
+}
+
+// Unmap a partner's allocation (`ring_ipc_open`).
+extern "C" int ring_ipc_close(void* ptr) { return cudaIpcCloseMemHandle(ptr); }
+
+// Free an allocation of `ring_ipc_alloc`, once every partner has closed it.
+extern "C" int ring_ipc_free(int device, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = cudaFree(ptr);
+  const cudaError_t back = cudaSetDevice(prev);
+  return err != cudaSuccess ? err : back;
 }

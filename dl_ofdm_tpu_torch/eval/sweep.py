@@ -39,6 +39,14 @@ generator.
     dp does not divide is refused (JAX rounds it up, `sweep.py:209`), and
     where `frames_per_point` is not a whole number of batches the log says
     how many frames a point were evaluated.
+
+On a mesh over a group of processes (`parallel/distributed.py`) each
+process sweeps its own dp rows; every row keeps its own error and CE
+sums, and the rows are combined once at the end
+(`parallel.mesh.gather_rows`) and summed in row order, as the
+one-process mesh sums them, so both give the same counts.  The
+point_batch moments take their sums over every row (`global_moments`).
+Only process 0 logs and writes CSVs.
 """
 from __future__ import annotations
 
@@ -50,7 +58,10 @@ import numpy as np
 import torch
 
 from dl_ofdm_tpu_torch.ops.norms import normalize
-from dl_ofdm_tpu_torch.parallel.mesh import module_replicas, rank_generators
+from dl_ofdm_tpu_torch.parallel import distributed as pd
+from dl_ofdm_tpu_torch.parallel.mesh import (Mesh, gather_rows,
+                                             module_replicas,
+                                             rank_generators)
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.loop import first_output
 
@@ -166,15 +177,25 @@ def _sweep_result(trainer, snrs, tot_err, tot_ce, frames: int,
                        np.asarray(losses))
 
 
-def global_moments(ys: list, device: torch.device):
+def global_moments(ys: list, device: torch.device, mesh=None):
     """Per-position (mean, population variance) over the concatenation of
-    the ranks' batches `ys`, on `device`, in two passes: the mean from the
-    shards' sums, then the variance from the shards' summed centred
-    squares (summed in rank order)."""
-    n = sum(y.shape[0] for y in ys)
-    mean = sum(y.sum(dim=0, keepdim=True).to(device) for y in ys) / n
-    var = sum(((y - mean.to(y.device)) ** 2).sum(dim=0, keepdim=True)
-              .to(device) for y in ys) / n
+    the ranks' batches `ys` (every row of `mesh`: the local rows' batches,
+    the other processes' through `gather_rows`; equal shards), on
+    `device`, in two passes: the mean from the shards' sums, then the
+    variance from the shards' summed centred squares (summed in rank
+    order)."""
+    if mesh is None:
+        grid = np.empty((len(ys), 1), dtype=object)
+        grid[:, 0] = [y.device for y in ys]
+        mesh = Mesh(grid)
+    dp = mesh.shape["dp"]
+    n = ys[0].shape[0] * dp
+    sums = gather_rows(mesh, [[y.sum(dim=0, keepdim=True)] for y in ys],
+                       device)[0]
+    mean = sum(sums[r] for r in range(dp)) / n
+    sq = gather_rows(mesh, [[((y - mean.to(y.device)) ** 2).sum(
+        dim=0, keepdim=True)] for y in ys], device)[0]
+    var = sum(sq[r] for r in range(dp)) / n
     return mean, var
 
 
@@ -183,13 +204,17 @@ def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                     batch_frames: int, log_fn, point_batch: bool,
                     mesh) -> SweepResult:
     """`ber_sweep` over the dp rows of a mesh (see the module note)."""
-    devs = mesh.dp_devices
-    dp, dev0 = len(devs), devs[0]
+    devs, rows = mesh.local_dp_devices, mesh.local_rows
+    dp, dev0 = mesh.shape["dp"], mesh.home
+    if mesh.multiprocess and not pd.is_main_process():
+        log_fn = lambda *a: None  # noqa: E731
     models = module_replicas(trainer.model, devs)
-    gens = rank_generators(generator, devs)
+    gens = rank_generators(generator, devs, rows)
     n_pts = len(snrs)
-    tot_err = torch.zeros(n_pts, dtype=torch.int64, device=dev0)
-    tot_ce = torch.zeros(n_pts, dtype=torch.float64, device=dev0)
+    # each local row's sums, on its device
+    row_err = [torch.zeros(n_pts, dtype=torch.int64, device=d) for d in devs]
+    row_ce = [torch.zeros(n_pts, dtype=torch.float64, device=d)
+              for d in devs]
     if point_batch:
         batch_frames = min(batch_frames, frames_per_point)
         if batch_frames % dp:
@@ -209,27 +234,32 @@ def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                 out = [trainer.synthesize(shard, s, g, normalize=False,
                                           device=d)
                        for s, g, d in zip(snr_vecs, gens, devs)]
-                mean, var = global_moments([y for _, y, *_ in out], dev0)
-                for (bits, y, *_), d in zip(out, devs):
+                mean, var = global_moments([y for _, y, *_ in out], dev0,
+                                           mesh)
+                for (bits, y, *_), d, err, ce in zip(out, devs, row_err,
+                                                     row_ce):
                     logits = first_output(models[d](
                         normalize(y, mean.to(d), var.to(d))))
-                    tot_err[i] += (M.bit_predictions(logits) != bits).sum() \
-                        .to(dev0)
-                    tot_ce[i] += M.frame_cross_entropy(logits, bits).sum() \
-                        .to(dev0)
+                    err[i] += (M.bit_predictions(logits) != bits).sum()
+                    ce[i] += M.frame_cross_entropy(logits, bits).sum()
     else:
         snr_vec, onehot = interleaved_groups(snrs, batch_frames, "cpu", dp)
-        shards = [(s.to(d), o.to(d)) for s, o, d in
-                  zip(torch.chunk(snr_vec, dp), torch.chunk(onehot, dp), devs)]
+        snr_c, onehot_c = torch.chunk(snr_vec, dp), torch.chunk(onehot, dp)
+        shards = [(snr_c[r].to(d), onehot_c[r].to(d))
+                  for r, d in zip(rows, devs)]
         frames = snr_vec.shape[0] // n_pts
         n_calls = max(1, frames_per_point // frames)
         frames *= n_calls
         for _ in range(n_calls):
-            for (s, o), g, d in zip(shards, gens, devs):
-                errors, ce = eval_batch(trainer, s, o, g, model=models[d])
-                tot_err += errors.to(dev0)
-                tot_ce += ce.to(dev0)
-    return _sweep_result(trainer, snrs, tot_err, tot_ce, frames, log_fn)
+            for (s, o), g, d, err, ce in zip(shards, gens, devs, row_err,
+                                             row_ce):
+                errors, ce_ = eval_batch(trainer, s, o, g, model=models[d])
+                err += errors
+                ce += ce_
+    errs, ces = gather_rows(mesh, [[e, c] for e, c in zip(row_err, row_ce)],
+                            dev0)
+    return _sweep_result(trainer, snrs, sum(errs[r] for r in range(dp)),
+                         sum(ces[r] for r in range(dp)), frames, log_fn)
 
 
 def cross_channel_sweep(make_trainer: Callable, params: dict,
@@ -261,6 +291,7 @@ def cross_channel_sweep(make_trainer: Callable, params: dict,
         suffix = "_mobile" if mobile else ""
         name = (f"Test_DCCN_{token}_Equalizer{opt}_{train_channel}"
                 f"_test_chan_{chan}{suffix}.csv")
-        res.to_csv(os.path.join(save_dir, name))
+        if pd.is_main_process():
+            res.to_csv(os.path.join(save_dir, name))
         results[chan] = res
     return results

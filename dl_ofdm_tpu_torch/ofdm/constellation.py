@@ -41,6 +41,12 @@ def _table_np(nbits: int) -> np.ndarray:
     return np.asarray(pts, dtype=np.complex64)
 
 
+def const_table(nbits: int, device=None) -> torch.Tensor:
+    """Reference constellation LUT, shape [2**nbits] complex64 (CPU/tests
+    only; `const_table_iq` is the IQ table the port's paths use)."""
+    return torch.from_numpy(_table_np(nbits)).to(device)
+
+
 def const_table_iq(nbits: int, device=None) -> torch.Tensor:
     """Reference constellation LUT as IQ pairs, shape [2**nbits, 2] float32."""
     t = _table_np(nbits)

@@ -5,15 +5,20 @@ constellation lookup, data/pilot subcarrier placement (pilot value 3+3j),
 unscaled-forward / 1/N-inverse DFT and the CP prepend.  As in the JAX
 package, small grids fold placement, IDFT and CP into one constant GEMM per
 OFDM symbol (`_symbol_tx_operator`); large grids keep the grid/IDFT path.
+`ofdm_modulate_frames` (complex64, `torch.fft.ifft`), `iq_split`,
+`iq_join` and `OFDMTx` are the JAX module's complex-dtype oracle and class
+API (`tx.py:201-246`), for the CPU and tests.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from dl_ofdm_tpu_torch.ofdm.constellation import (const_table_iq,
+from dl_ofdm_tpu_torch.config import OFDMConfig
+from dl_ofdm_tpu_torch.ofdm.constellation import (const_table,
+                                                  const_table_iq,
                                                   indices_from_bits)
-from dl_ofdm_tpu_torch.ofdm.plan import SubcarrierPlan
+from dl_ofdm_tpu_torch.ofdm.plan import SubcarrierPlan, build_plan
 from dl_ofdm_tpu_torch.ops import cfloat
 
 # plans are built once per config and cached (`plan._build_plan_cached`), so
@@ -128,3 +133,45 @@ def ofdm_modulate_frames_iq(bits: torch.Tensor, plan: SubcarrierPlan,
     grid = grid.reshape(n_frame, plan.nsymbol, plan.nfft, 2)
     time = cfloat.idft_iq(grid)                          # [B, S, K, 2]
     return torch.cat([time[:, :, -plan.cp_len:], time], dim=2)
+
+
+def ofdm_modulate_frames(bits: torch.Tensor,
+                         plan: SubcarrierPlan) -> torch.Tensor:
+    """The complex oracle of `ofdm_modulate_frames_iq`: [n_frame,
+    frame_size, nbits] bits -> complex64 [n_frame, nsymbol, nfft + cp_len]
+    (grid placement, `torch.fft.ifft`, CP prepend)."""
+    n_frame = bits.shape[0]
+    if bits.shape[1] != plan.frame_size:
+        raise ValueError(
+            f"bits frame_size {bits.shape[1]} != plan frame_size {plan.frame_size}")
+    dev = bits.device
+    symbols = const_table(bits.shape[-1], dev)[indices_from_bits(bits)]
+    grid = torch.zeros(n_frame, plan.nsymbol * plan.nfft,
+                       dtype=torch.complex64, device=dev)
+    grid[:, torch.from_numpy(plan.data_sc).to(dev)] = symbols
+    grid[:, torch.from_numpy(plan.pilot_sc).to(dev)] = complex(
+        plan.pilot_value)
+    time = torch.fft.ifft(grid.reshape(n_frame, plan.nsymbol, plan.nfft),
+                          dim=-1).to(torch.complex64)
+    return torch.cat([time[..., -plan.cp_len:], time], dim=-1)
+
+
+# the canonical IQ <-> complex conversions live in ops.cfloat; these aliases
+# keep the TX module's public names (`tx.py:231-232`)
+iq_split = cfloat.from_complex
+iq_join = cfloat.to_complex
+
+
+class OFDMTx:
+    """The reference `ofdm_tx` class API (`tx.py:235-246`): holds the plan
+    and modulates frames."""
+
+    def __init__(self, cfg: OFDMConfig):
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+
+    def __call__(self, bits: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(complex waveform [B, S, K+CP], its IQ view [B, S, K+CP, 2])."""
+        wf = ofdm_modulate_frames(bits, self.plan)
+        return wf, iq_split(wf)

@@ -33,6 +33,19 @@ def cmul_iq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([ar * br - ai * bi, ar * bi + ai * br], dim=-1)
 
 
+def to_complex(x: torch.Tensor) -> torch.Tensor:
+    """IQ pair [..., 2] -> complex64 [...] (CPU/tests only: the port keeps
+    complex data IQ-last on its paths)."""
+    return torch.complex(x[..., 0].to(torch.float32),
+                         x[..., 1].to(torch.float32))
+
+
+def from_complex(x: torch.Tensor) -> torch.Tensor:
+    """Complex [...] -> float32 IQ pairs [..., 2]."""
+    return torch.stack([x.real.to(torch.float32),
+                        x.imag.to(torch.float32)], dim=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _dft_mats_np(k_in: int, n_out: int, inverse: bool):
     """cos/sin matrices for X[m] = sum_t x[t] e^(-+ 2*pi*i*t*m / n_out)."""

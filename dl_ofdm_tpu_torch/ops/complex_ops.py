@@ -41,6 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+# the complex-pair primitives live in ops.cfloat; the layer module's public
+# names alias them (`complex_ops.py:74-76`)
+from dl_ofdm_tpu_torch.ops.cfloat import (  # noqa: F401
+    cmul_iq as complex_mul, from_complex as complex_to_iq,
+    to_complex as iq_to_complex)
 from dl_ofdm_tpu_torch.ops.pallas_kernels import (bf16_round, complex_dense,
                                                   is_bf16)
 

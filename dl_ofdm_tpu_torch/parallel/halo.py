@@ -27,6 +27,16 @@ halo FIR (`exchange='dma'`) is captured with `torch.cuda.graph` as it
 stands and replays with new shard contents.  Across cards, capture one
 graph a card around `ring_exchange_kernel(..., out=, device=)` and replay
 every card's graph the same number of times.
+
+Across processes (a `Mesh` over a `torch.distributed` group, each process
+passing its own ranks' shards): 'ppermute' is `batch_isend_irecv` between
+the processes (NCCL on cards, gloo on the CPU; card tensors over gloo
+raise: nothing is staged through the host), as is 'dma' on CPU ranks; 'dma'
+on card ranks is `ring_exchange_across`, the ring kernel's handshake
+template with each process launching only its own ranks' blocks, on its
+own stream, into receive buffers and handshake words that the kernel
+library allocates and every partner maps through CUDA IPC (the handles go
+round by `all_gather_object` once a ring and once a shape).
 """
 from __future__ import annotations
 
@@ -36,13 +46,16 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_ofdm_tpu_torch.ops import cuda_build
 from dl_ofdm_tpu_torch.ops.pallas_kernels import fir_shift_accum
+from dl_ofdm_tpu_torch.parallel import distributed as pd
 from dl_ofdm_tpu_torch.parallel.mesh import Mesh
 
 RING_MAX_RANKS = 16          # csrc/ring_exchange.cu: RING_MAX_RANKS
 RING_WORDS = 3               # a side's words on its card: epoch, credit, data
+IPC_HANDLE_BYTES = 64        # CUDA_IPC_HANDLE_SIZE
 
 
 def ring_exchange_ref(left_tails: list, right_heads: list):
@@ -90,6 +103,16 @@ def _ring_lib():
     lib.ring_enable_peer.restype = ctypes.c_int
     lib.ring_empty_launch.argtypes = [ctypes.c_void_p]
     lib.ring_empty_launch.restype = ctypes.c_int
+    lib.ring_ipc_alloc.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.c_char_p]
+    lib.ring_ipc_open.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_void_p)]
+    lib.ring_ipc_close.argtypes = [ctypes.c_void_p]
+    lib.ring_ipc_free.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    for f in ("ring_ipc_alloc", "ring_ipc_open", "ring_ipc_close",
+              "ring_ipc_free"):
+        getattr(lib, f).restype = ctypes.c_int
     return lib
 
 
@@ -443,19 +466,267 @@ def ring_exchange_kernel(left_tails: list, right_heads: list, out=None,
 ring_exchange_kernel.launches = 0
 
 
-def ring_exchange(left_tails: list, right_heads: list):
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _tensor_at(ptr: int, shape: tuple) -> torch.Tensor:
+    """A float32 tensor of `shape` over card memory at `ptr` that PyTorch
+    did not allocate (`__cuda_array_interface__`; it does not own it)."""
+    class _View:
+        __cuda_array_interface__ = {"shape": tuple(shape), "typestr": "<f4",
+                                    "data": (int(ptr), False), "version": 2,
+                                    "strides": None}
+    return torch.as_tensor(_View())
+
+
+class _IpcRing:
+    """The ring over a mesh whose ranks span processes: its plan over
+    "cards" that are (process, device) pairs (two processes on one card
+    are two cards of the plan: two contexts), and its handshake words,
+    RING_WORDS a side, in one allocation of the kernel library a card,
+    made and zeroed by the card's process and mapped by its partners
+    (CUDA IPC).  The words are never reset: the epochs only grow.  Made
+    collectively: every process of the mesh makes it at once."""
+
+    def __init__(self, keys: tuple, me: int):
+        self.plan = plan = ring_plan(keys)
+        self.me = me
+        self.local = [c for c, card in enumerate(plan.cards)
+                      if card.device[0] == me]
+        # the cards the local sides reach (sources' credits, destinations'
+        # data words and receive buffers), each from the local card of the
+        # first side that reaches it
+        self.reach: dict[int, torch.device] = {}
+        for c in self.local:
+            card = plan.cards[c]
+            for sd in card.sides:
+                for r in (sd.src_rank, sd.dst_rank):
+                    self.reach.setdefault(plan.card_of[r],
+                                          torch.device(card.device[1]))
+        self.allocs: list[tuple[int, int]] = []
+        self.opened: list[int] = []
+        self.words = [2 * RING_WORDS * len(card.ranks) for card in plan.cards]
+        self.word_base = self.shared([4 * n for n in self.words])
+
+    def shared(self, nbytes: list[int]) -> list[int]:
+        """One zeroed allocation of `nbytes[c]` bytes on each card c, made
+        by its process and mapped by the processes that reach it: each
+        card's base address in this process (0 where unreached)."""
+        lib = _ring_lib()
+        mine = {}
+        for c in self.local:
+            dev = torch.device(self.plan.cards[c].device[1])
+            ptr = ctypes.c_void_p()
+            handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+            _check(lib.ring_ipc_alloc(dev.index, max(nbytes[c], 16),
+                                      ctypes.byref(ptr), handle),
+                   f"ring_ipc_alloc on {dev}")
+            self.allocs.append((dev.index, ptr.value))
+            mine[c] = (handle.raw, ptr.value)
+        handles = {}
+        for part in pd.all_gather_object({c: h for c, (h, _) in
+                                          mine.items()}):
+            handles.update(part)
+        bases = []
+        for c in range(len(self.plan.cards)):
+            if c in mine:
+                bases.append(mine[c][1])
+            elif c in self.reach:
+                ptr = ctypes.c_void_p()
+                dev = self.reach[c]
+                _check(lib.ring_ipc_open(dev.index, handles[c],
+                                         ctypes.byref(ptr)),
+                       f"mapping card {self.plan.cards[c].device} into "
+                       f"process {self.me} from {dev} (the 'dma' ring "
+                       "across processes needs them on one host, with "
+                       "peer access between their cards)")
+                self.opened.append(ptr.value)
+                bases.append(ptr.value)
+            else:
+                bases.append(0)
+        return bases
+
+    def release(self) -> None:
+        """Unmap the partners' memory, wait for every process, free this
+        process's (collective)."""
+        lib = _ring_lib()
+        for ptr in self.opened:
+            _check(lib.ring_ipc_close(ptr), "ring_ipc_close")
+        self.opened.clear()
+        pd.barrier(torch.device(self.plan.cards[self.local[0]].device[1]))
+        for index, ptr in self.allocs:
+            _check(lib.ring_ipc_free(index, ptr), "ring_ipc_free")
+        self.allocs.clear()
+
+
+class _IpcLaunch:
+    """A cross-process ring's launch plan of one shape: `_RingLaunch`'s
+    arguments for every card (only the local ones launch) and the
+    receive buffers, one shared allocation a card (its ranks' recv_l,
+    then their recv_r), persistent: the local ranks' views of them are
+    what an exchange returns."""
+
+    def __init__(self, ring: _IpcRing, local: list[int], shape_l, shape_r,
+                 strides_l, strides_r):
+        p = len(ring.plan.card_of)
+        st_l, st_r = [0] * p, [0] * p
+        for r, a, b in zip(local, strides_l, strides_r):
+            st_l[r], st_r[r] = a, b
+        self.launch = launch = _RingLaunch(ring, shape_l, shape_r, st_l, st_r)
+        self.me = ring.me
+        bases = np.array(ring.shared([4 * (n_l + n_r) for _, n_l, n_r, _ in
+                                      launch.cards]), np.uint64)
+        self.recv = bases[launch.recv_card] + launch.recv_off
+        self.recv_l = [_tensor_at(self.recv[r], shape_l) for r in local]
+        self.recv_r = [_tensor_at(self.recv[p + r], shape_r) for r in local]
+        self.slices = np.zeros(2 * p, np.uint64)
+
+
+_IPC_RINGS: dict[tuple, _IpcRing] = {}
+_IPC_LAUNCHES: dict[tuple, _IpcLaunch] = {}
+
+
+def _mesh_keys(mesh: Mesh) -> tuple:
+    """Each rank's (process, device name): the ring's cards."""
+    return tuple((int(p), str(d)) for p, d in zip(mesh.process.flat,
+                                                 mesh.devices.flat))
+
+
+def ring_exchange_across(left_tails: list, right_heads: list, mesh: Mesh):
+    """The ring kernel over a mesh whose ranks span processes: this
+    process's ranks' slices (`mesh.local_ranks` in order; float32 on its
+    CUDA devices, left tails [B, hl, 2] and right heads [B, hr, 2] with
+    contiguous rows, alike on every rank) -> (recv_l, recv_r) of its
+    ranks, as `ring_exchange_ref` over the whole ring.
+
+    Collective: every process calls it at once, with the same shapes.
+    Each process launches the handshake template for its own cards only,
+    on each card's current stream; its receive buffers and words live in
+    memory the kernel library allocated and its partners mapped (CUDA
+    IPC, handles exchanged once a ring and once a shape).  The results
+    are views of those buffers, valid until the next exchange of the
+    same shape (which the handshake holds back until this process's
+    stream has read them): clone to keep them."""
+    local = mesh.local_ranks
+    if len(left_tails) != len(local) or len(right_heads) != len(local):
+        raise ValueError(f"ring_exchange_across: {len(local)} local ranks, "
+                         f"got {len(left_tails)} left tails and "
+                         f"{len(right_heads)} right heads")
+    ts = list(left_tails) + list(right_heads)
+    devs = [mesh.rank_devices[r] for r in local]
+    if any(t.device != d for t, d in zip(ts, devs * 2)) or any(
+            d.type != "cuda" for d in devs):
+        raise ValueError("ring_exchange_across: each rank's slices on its "
+                         "CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("ring_exchange_kernel takes float32 tensors")
+    shape_l, shape_r = tuple(left_tails[0].shape), tuple(right_heads[0].shape)
+    if any(tuple(t.shape) != shape_l for t in left_tails) or any(
+            tuple(t.shape) != shape_r for t in right_heads) or \
+            shape_l[0] != shape_r[0]:
+        raise ValueError("ring_exchange_across: every left tail and right "
+                         "head alike")
+    strides_l = [_side_strides(t) for t in left_tails]
+    strides_r = [_side_strides(t) for t in right_heads]
+    keys = _mesh_keys(mesh)
+    ring = _IPC_RINGS.get(keys)
+    if ring is None:
+        ring = _IPC_RINGS[keys] = _IpcRing(keys, mesh.process_index)
+    key = (keys, shape_l, shape_r, tuple(strides_l), tuple(strides_r))
+    ipc = _IPC_LAUNCHES.get(key)
+    if ipc is None:
+        ipc = _IPC_LAUNCHES[key] = _IpcLaunch(ring, local, shape_l, shape_r,
+                                              strides_l, strides_r)
+    p = len(ring.plan.card_of)
+    for i, r in enumerate(local):
+        ipc.slices[r] = left_tails[i].data_ptr()
+        ipc.slices[p + r] = right_heads[i].data_ptr()
+    ipc.launch.write(np.concatenate((ipc.slices, ipc.recv)))
+    lib = _ring_lib()
+    for c in ipc.launch.launches:
+        if c.device[0] != ipc.me:
+            continue
+        index = torch.device(c.device[1]).index
+        err = lib.ring_exchange_f32(c.ref, 1, index,
+                                    torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"ring_exchange kernel launch on "
+                               f"{c.device} failed: CUDA error {err}")
+        ring_exchange_kernel.launches += 1
+        ring_exchange_across.launches += 1
+    return list(ipc.recv_l), list(ipc.recv_r)
+
+
+ring_exchange_across.launches = 0
+
+
+def release_rings() -> None:
+    """Free the cross-process rings' shared memory (collective: every
+    process of their meshes calls it; later exchanges make them anew)."""
+    for ring in _IPC_RINGS.values():
+        ring.release()
+    _IPC_RINGS.clear()
+    _IPC_LAUNCHES.clear()
+
+
+def _ppermute_across(slices: list, shift: int, mesh: Mesh) -> list:
+    """recv[i] = the slice of global rank (local_ranks[i] - shift) mod P,
+    on local rank i's device: a copy where that rank is this process's,
+    else received by `batch_isend_irecv` (NCCL for card tensors, gloo
+    for CPU ones).  Collective."""
+    p, proc = mesh.devices.size, mesh.process.reshape(-1)
+    local = mesh.local_ranks
+    pos = {r: i for i, r in enumerate(local)}
+    devs = [mesh.rank_devices[r] for r in local]
+    if any(t.is_cuda for t in slices) and dist.get_backend() != "nccl":
+        raise ValueError(
+            f"the 'ppermute' exchange across processes takes card tensors "
+            f"over NCCL only (this group is {dist.get_backend()}; nothing "
+            "is staged through the host): use exchange='dma'")
+    out, ops = [None] * len(local), []
+    for i, r in enumerate(local):
+        src = (r - shift) % p
+        if src in pos:
+            out[i] = slices[pos[src]].to(devs[i])
+        else:
+            out[i] = torch.empty(slices[i].shape, dtype=slices[i].dtype,
+                                 device=devs[i])
+            ops.append(dist.P2POp(dist.irecv, out[i], int(proc[src]),
+                                  tag=r))
+    for i, r in enumerate(local):
+        dst = (r + shift) % p
+        if dst not in pos:
+            ops.append(dist.P2POp(dist.isend, slices[i].contiguous(),
+                                  int(proc[dst]), tag=dst))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def ring_exchange(left_tails: list, right_heads: list, mesh: Mesh | None = None):
     """Each rank's `left_tail` to its right neighbour and `right_head` to
     its left one: (recv_l, recv_r) with recv_l[r] = left_tails[(r-1) mod P]
     and recv_r[r] = right_heads[(r+1) mod P], unmasked, any P >= 1.  The
     kernel where the ranks lie on CUDA devices, the plain version where
-    they lie on the CPU; a mix raises."""
+    they lie on the CPU; a mix raises.  On a `mesh` over processes, this
+    process's ranks' slices: the kernel across processes
+    (`ring_exchange_across`) on cards, the plain version's messages
+    between the processes on the CPU."""
     kinds = {t.device.type for t in list(left_tails) + list(right_heads)}
+    if kinds not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"ring_exchange: ranks on {sorted(kinds)}; all on "
+                         "CUDA devices or all on the CPU")
+    if mesh is not None and mesh.multiprocess:
+        if kinds == {"cuda"}:
+            return ring_exchange_across(left_tails, right_heads, mesh)
+        return (_ppermute_across(left_tails, 1, mesh),
+                _ppermute_across(right_heads, -1, mesh))
     if kinds == {"cpu"}:
         return ring_exchange_ref(left_tails, right_heads)
-    if kinds == {"cuda"}:
-        return ring_exchange_kernel(left_tails, right_heads)
-    raise ValueError(f"ring_exchange: ranks on {sorted(kinds)}; all on "
-                     "CUDA devices or all on the CPU")
+    return ring_exchange_kernel(left_tails, right_heads)
 
 
 _dma_ring_exchange = ring_exchange      # the JAX package's name
@@ -480,7 +751,9 @@ def halo_fir_same_iq(shards: list, h: torch.Tensor, offset: int,
 
     Args:
       shards: P tensors [B, L_local, 2], rank r's on its device: the block
-        [B, P * L_local, 2] cut into consecutive pieces.
+        [B, P * L_local, 2] cut into consecutive pieces.  On a `Mesh` over
+        processes, this process's ranks' shards (`mesh.local_ranks`), and
+        every process calls at once.
       h: [B, F, 2] FIR kernels, the same for every rank (moved to each).
       offset: static alignment in [0, F-1]: (F-1)//2 for np.convolve
         'same', 0 for causal filtering.
@@ -488,13 +761,18 @@ def halo_fir_same_iq(shards: list, h: torch.Tensor, offset: int,
       exchange: 'ppermute' (copies between the ranks' devices) or 'dma'
         (`ring_exchange`: the ring kernel on CUDA ranks).
 
-    Returns the P output shards [B, L_local, 2]: out[n] = sum_k h[k]
-    x[n + offset - k] over the whole block, zero outside it.
+    Returns the P output shards [B, L_local, 2] (this process's, across
+    processes): out[n] = sum_k h[k] x[n + offset - k] over the whole
+    block, zero outside it.
     """
+    mesh = mesh_or_devices if isinstance(mesh_or_devices, Mesh) else None
+    multi = mesh is not None and mesh.multiprocess
     devs = _ranks(mesh_or_devices)
     p = len(devs)
-    if len(shards) != p:
-        raise ValueError(f"{len(shards)} shards for {p} ranks")
+    ranks = mesh.local_ranks if multi else list(range(p))
+    devs = [devs[r] for r in ranks]
+    if len(shards) != len(devs):
+        raise ValueError(f"{len(shards)} shards for {len(devs)} ranks")
     f = h.shape[1]
     b, l_local, _ = shards[0].shape
     if not 0 <= offset <= f - 1:
@@ -509,26 +787,30 @@ def halo_fir_same_iq(shards: list, h: torch.Tensor, offset: int,
             # exchange of a zero halo is left unused, as in JAX
             hl, hr = max(halo_l, 1), max(halo_r, 1)
             recv_l, recv_r = ring_exchange([x[:, -hl:, :] for x in shards],
-                                           [x[:, :hr, :] for x in shards])
+                                           [x[:, :hr, :] for x in shards],
+                                           mesh)
         else:
             recv_l = recv_r = None
     elif exchange == "ppermute":
-        recv_l = (_ppermute([x[:, -halo_l:, :] for x in shards], 1, devs)
+        permute = (functools.partial(_ppermute_across, mesh=mesh) if multi
+                   else lambda sl, shift: _ppermute(sl, shift, devs))
+        recv_l = (permute([x[:, -halo_l:, :] for x in shards], 1)
                   if halo_l else None)
-        recv_r = (_ppermute([x[:, :halo_r, :] for x in shards], -1, devs)
+        recv_r = (permute([x[:, :halo_r, :] for x in shards], -1)
                   if halo_r else None)
     else:
         raise ValueError(exchange)
     out = []
-    for r, (x, dev) in enumerate(zip(shards, devs)):
+    for i, (x, dev) in enumerate(zip(shards, devs)):
+        r = ranks[i]
         parts = []
         if halo_l:
-            parts.append(torch.zeros_like(recv_l[r]) if r == 0
-                         else recv_l[r])
+            parts.append(torch.zeros_like(recv_l[i]) if r == 0
+                         else recv_l[i])
         parts.append(x)
         if halo_r:
-            parts.append(torch.zeros_like(recv_r[r]) if r == p - 1
-                         else recv_r[r])
+            parts.append(torch.zeros_like(recv_r[i]) if r == p - 1
+                         else recv_r[i])
         ext = torch.cat(parts, dim=1)       # [B, halo_l + L_local + halo_r, 2]
         hd = h.to(dev)
         # ext[m] = x_global[start - halo_l + m], so out[n] = sum_k h[k]

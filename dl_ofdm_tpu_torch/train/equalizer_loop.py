@@ -39,6 +39,7 @@ from dl_ofdm_tpu_torch.models.receiver import EqualizedReceiver
 from dl_ofdm_tpu_torch.ofdm.plan import build_plan
 from dl_ofdm_tpu_torch.ops.fused_synth import fused_synthesize
 from dl_ofdm_tpu_torch.ops.norms import frame_layer_norm
+from dl_ofdm_tpu_torch.parallel import distributed as pd
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.curriculum import modulation_offset_db, sample_snr
 from dl_ofdm_tpu_torch.train.loop import (Trainer, TrainState,
@@ -172,8 +173,9 @@ class EqualizerTrainer(Trainer):
                                  "(equalizer_loop.py:159-160)")
             bits, rx_in, h_freq, noise_pwr = self._synth_mesh(
                 generator, snr_db, want_h=True)
-            extras = [{"h_freq": h, "snr_db": s.to(h.device)} for h, s in
-                      zip(h_freq, torch.chunk(snr_db, len(h_freq)))]
+            snrs = torch.chunk(snr_db, self.mesh.shape["dp"])
+            extras = [{"h_freq": h, "snr_db": snrs[r].to(h.device)}
+                      for h, r in zip(h_freq, self.mesh.local_rows)]
             return self._mesh_step(state, bits, rx_in, extras, noise_pwr)
         bits, rx_in, h_freq, noise_pwr = self._curriculum_data(generator,
                                                                snr_db)
@@ -205,6 +207,7 @@ class EqualizerTrainer(Trainer):
     def _fit_curriculum(self, seed, max_epochs, log_fn, init_state, ckpt_dir,
                         ckpt_every):
         tc = self.tc
+        log_fn = self._main_log(log_fn)
         seed = tc.seed if seed is None else seed
         max_epochs = tc.max_epoch_num if max_epochs is None else max_epochs
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -225,13 +228,15 @@ class EqualizerTrainer(Trainer):
             for _ in range(steps):
                 state, aux = self.train_step_curriculum(state, gen)
                 losses.append(aux["ce"])
-            epoch_loss = float(torch.stack(losses).mean())
             val = self.eval_step(state.params, gen, 1024, sample_snr(
                 gen, 1024, self._snr_offset, tail=tc.curriculum_tail))
+            # the decisions' numbers: process 0's in every process
+            epoch_loss, val_ber = pd.agree(
+                [torch.stack(losses).mean(), val["ber"]], self.device)
             history.append({"epoch": epoch, "train_loss": epoch_loss,
-                            "val_ber": float(val["ber"])})
+                            "val_ber": val_ber})
             log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
-                   f"val_ber={float(val['ber']):.6f}")
+                   f"val_ber={val_ber:.6f}")
             if epoch_loss < best_loss:
                 best_loss, best_epoch = epoch_loss, epoch
                 best_params = state.params

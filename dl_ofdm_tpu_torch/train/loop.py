@@ -49,6 +49,17 @@ Adam runs on the shards (a split leaf's moments are the list of its
 shards, on dp row 0's tp ranks).  `TrainState.params` holds the gathered
 (full) parameters after every step, for evaluation, sweeps and
 checkpoints.
+
+On a mesh over a group of processes (`parallel/distributed.py`), each
+process draws, runs and differentiates only its own dp rows; the rows'
+noise powers, CE terms, confusion counts, further metrics and gradients
+are combined over the processes by `parallel.mesh.gather_rows` and summed
+in row order, so the L2 term sees the global BER and every process runs
+Adam on the same gradients (replicated Adam, as JAX's step does), with
+the one-process mesh's numbers.  `fit` takes every decision on process
+0's numbers (`distributed.agree`), only process 0 logs and writes resume
+payloads, and every process restores them (`ckpt_dir` must be a
+directory every process sees).
 """
 from __future__ import annotations
 
@@ -76,7 +87,9 @@ from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
                                                build_synth_spec,
                                                fused_synthesize)
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
-from dl_ofdm_tpu_torch.parallel.mesh import (gather_leaf, module_replicas,
+from dl_ofdm_tpu_torch.parallel import distributed as pd
+from dl_ofdm_tpu_torch.parallel.mesh import (gather_leaf, gather_rows,
+                                             module_replicas,
                                              rank_generators, shard_dims,
                                              shard_params)
 from dl_ofdm_tpu_torch.parallel.tp import TensorParallel
@@ -219,8 +232,8 @@ class Trainer:
     `mesh` (a `parallel.mesh.Mesh`) makes the step data parallel over its
     dp rows and, with tp > 1, tensor parallel over each row's tp ranks;
     `batch_frames` is rounded up to a multiple of dp (the tp ranks of a
-    row share its frames), the device is rank 0's, and the fused route is
-    never taken (`loop.py:146`)."""
+    row share its frames), the device is the mesh's `home` (rank 0's in
+    one process), and the fused route is never taken (`loop.py:146`)."""
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig, channel: str = "AWGN",
                  mobile: bool = False, mix: bool | None = None,
@@ -228,11 +241,11 @@ class Trainer:
                  device: str | torch.device | None = None, mesh=None):
         self.mesh = mesh
         if mesh is not None:
-            rank0 = mesh.dp_devices[0]
-            if device is not None and resolve_device(device) != rank0:
-                raise ValueError(f"device {device} is not the mesh's rank 0 "
-                                 f"({rank0})")
-            device = rank0
+            home = mesh.home
+            if device is not None and resolve_device(device) != home:
+                raise ValueError(f"device {device} is not the mesh's home "
+                                 f"rank's ({home})")
+            device = home
         self.device = resolve_device(device)
         self.cfg, self.tc = cfg, tc
         self.plan = build_plan(cfg)
@@ -287,7 +300,8 @@ class Trainer:
         self._use_fused_model = on_card and self._fused_model_spec is not None
         # the model on every dp row's device, for the rows' forward passes
         self._rank_models = (None if mesh is None else
-                             module_replicas(self.model, mesh.dp_devices))
+                             module_replicas(self.model,
+                                             mesh.local_dp_devices))
         # the axis each parameter is split along over tp (None: replicated)
         self._dims = ({} if mesh is None else
                       shard_dims(mesh, self.model.state_dict()))
@@ -306,8 +320,11 @@ class Trainer:
         return frames + (-frames) % self.mesh.shape["dp"]
 
     def _replicate(self, params: dict) -> list[dict] | None:
-        """Each (dp, tp) rank's parameters; None off a mesh."""
+        """Each local (dp, tp) rank's parameters; None off a mesh."""
         return None if self.mesh is None else shard_params(self.mesh, params)
+
+    def _multiprocess(self) -> bool:
+        return self.mesh is not None and self.mesh.multiprocess
 
     def _leaves(self, params: dict, replicas: list[dict] | None,
                 keys) -> dict:
@@ -325,7 +342,11 @@ class Trainer:
                 else v for k, v in leaves.items()}
 
     def _new_state(self, params: dict, keys) -> TrainState:
-        """`params` with a zero Adam state over `keys` (on the shards)."""
+        """`params` with a zero Adam state over `keys` (on the shards); on a
+        mesh over processes, process 0's `params` in every process."""
+        if self._multiprocess():
+            for v in params.values():
+                pd.broadcast_(v)
         replicas = self._replicate(params)
         return TrainState(params, self.optimizer.init(
             self._leaves(params, replicas, keys)), 0, replicas)
@@ -408,21 +429,23 @@ class Trainer:
     # -- the mesh (dp) ---------------------------------------------------------
     def _synth_mesh(self, generator: torch.Generator, snr_db: torch.Tensor,
                     want_h: bool = False):
-        """The data plane over the dp ranks (`loop.py:206-228`): rank r
-        draws `batch_frames / dp` frames at its slice of `snr_db` on its
-        device from its own generator (`rank_generators`: one draw of
+        """The data plane over this process's dp rows (`loop.py:206-228`):
+        row r draws `batch_frames / dp` frames at its slice of `snr_db` on
+        its device from its own generator (`rank_generators`: one draw of
         `generator` plus r, for JAX's `fold_in(key, axis_index)`) and
-        normalizes them with its own moments.  Returns per-rank lists
-        (bits, rx_in, h_freq or None without `want_h`) and the noise power
-        averaged over the ranks."""
-        devs = self.mesh.dp_devices
-        local = self.batch_frames // len(devs)
-        shards = [self.synthesize(local, snr.to(dev), gen, device=dev)
-                  for dev, gen, snr in zip(devs,
-                                           rank_generators(generator, devs),
-                                           torch.chunk(snr_db, len(devs)))]
+        normalizes them with its own moments.  Returns the local rows'
+        lists (bits, rx_in, h_freq or None without `want_h`) and the noise
+        power averaged over every row of the mesh."""
+        mesh = self.mesh
+        devs, rows = mesh.local_dp_devices, mesh.local_rows
+        snrs = torch.chunk(snr_db, mesh.shape["dp"])
+        local = self.batch_frames // mesh.shape["dp"]
+        shards = [self.synthesize(local, snrs[r].to(dev), gen, device=dev)
+                  for dev, gen, r in zip(
+                      devs, rank_generators(generator, devs, rows), rows)]
         bits, rx_in, h_freq, noise_pwr, _ = zip(*shards)
-        noise_pwr = torch.stack([p.to(self.device) for p in noise_pwr]).mean()
+        noise_pwr = gather_rows(mesh, [[p] for p in noise_pwr],
+                                self.device)[0].mean()
         return (list(bits), list(rx_in), list(h_freq) if want_h else None,
                 noise_pwr)
 
@@ -433,24 +456,30 @@ class Trainer:
     def _mesh_step(self, state: TrainState, bits: list, rx_in: list,
                    extras: list, noise_pwr: torch.Tensor,
                    return_grads: bool = False):
-        """One mesh step on per-row shards of the frames (`extras[r]`:
-        further arguments of row r's `_rank_terms`).
+        """One mesh step on the local rows' shards of the frames
+        (`extras[i]`: further arguments of local row i's `_rank_terms`;
+        every row's shard has as many frames).
 
-        Every dp row runs the forward pass on its frames with its ranks'
-        parameters (tensor parallel over its tp ranks); the confusion
-        counts are summed over the rows first, so the L2 term takes the
-        global BER as JAX's global-batch loss does; each row's backward
-        pass runs on its CE weighted by its share of the frames; the rows'
-        gradients are summed in row order, a replicated leaf's on rank 0's
-        device, a split leaf's shard t on dp row 0's tp rank t; the L2
-        term's gradient is added once, Adam runs once (on the shards), and
-        every rank receives its part of the new parameters (a reduce and a
-        broadcast in place of an all-reduce and replicated Adam: the same
-        parameters)."""
+        Every local dp row runs the forward pass on its frames with its
+        ranks' parameters (tensor parallel over its tp ranks); the
+        confusion counts are summed over every row of the mesh first, so
+        the L2 term takes the global BER as JAX's global-batch loss does;
+        each row's backward pass runs on its CE weighted by its share of
+        the frames; the rows' gradients are summed in row order
+        (`gather_rows`: across processes too), a replicated leaf's on the
+        home device, a split leaf's shard t on the first local row's tp
+        rank t; the L2 term's gradient is added once, Adam runs once a
+        process on the same gradients (on the shards), and every local
+        rank receives its part of the new parameters."""
         mesh, dev0 = self.mesh, self.device
-        tp = mesh.shape["tp"]
+        tp, dp = mesh.shape["tp"], mesh.shape["dp"]
         keys = self._grad_keys(state.params)
-        total = sum(b.shape[0] for b in bits)
+        sizes = {b.shape[0] for b in bits}
+        if len(sizes) != 1 or len(bits) != len(mesh.local_rows):
+            raise ValueError(f"one shard of equal frames a local row "
+                             f"({len(mesh.local_rows)}), got "
+                             f"{[b.shape[0] for b in bits]}")
+        total = sizes.pop() * dp
         ranks = []
         for d, (b, x, extra) in enumerate(zip(bits, rx_in, extras)):
             row = [dict(r) for r in state.replicas[d * tp:(d + 1) * tp]]
@@ -460,15 +489,21 @@ class Trainer:
                 for t in range(tp if split else 1):
                     row[t][k] = row[t][k].detach().requires_grad_()
                 leaves[k] = [r[k] for r in row] if split else row[0][k]
-            ctx = (TensorParallel(row, mesh.tp_devices(d), self._dims)
-                   if self._tp else None)
+            ctx = (TensorParallel(row, mesh.tp_devices(mesh.local_rows[d]),
+                                  self._dims) if self._tp else None)
             ce, conf, more = self._rank_terms(
                 row[0], b, x, model=self._rank_models[x.device], tp=ctx,
                 **extra)
             ranks.append((flatten_leaves(leaves)[1],
                           ce * (b.shape[0] / total), conf, more))
-        ce = sum(w.detach().to(dev0) for _, w, _, _ in ranks)
-        conf = sum(c.to(dev0) for _, _, c, _ in ranks)
+        # every row's CE term, counts and further metrics, in row order
+        more = list(ranks[0][3])
+        terms = gather_rows(mesh, [
+            [w.detach(), c] + [m[k].detach() * (b.shape[0] / total)
+                               for k in more]
+            for (_, w, c, m), b in zip(ranks, bits)], dev0)
+        ce = sum(terms[0][r] for r in range(dp))
+        conf = sum(terms[1][r] for r in range(dp))
         # the parameter term, once, on dp row 0's leaves (the CE is
         # detached)
         params = self._leaves(state.params, state.replicas, state.params)
@@ -476,17 +511,18 @@ class Trainer:
         train = [t.detach().requires_grad_() for t in train]
         params.update(unflatten_leaves(spec, train))
         loss, aux = self._global_terms(params, ce, conf)
-        grads = None
-        for leaves, w, _, _ in ranks:
-            g = [g_.to(t.device) for g_, t in zip(torch.autograd.grad(
+        stacks = gather_rows(mesh, [
+            [g_.to(t.device) for g_, t in zip(torch.autograd.grad(
                 w, leaves, materialize_grads=True), train)]
-            grads = g if grads is None else torch._foreach_add(grads, g)
+            for leaves, w, _, _ in ranks])
+        grads = [s[0] for s in stacks]
+        for r in range(1, dp):
+            grads = torch._foreach_add(grads, [s[r] for s in stacks])
         grads = unflatten_leaves(spec, torch._foreach_add(
             grads, torch.autograd.grad(loss, train, materialize_grads=True)))
         aux = {k: v.detach() for k, v in aux.items()}
-        for k in ranks[0][3]:
-            aux[k] = sum(m[k].detach().to(dev0) * (b.shape[0] / total)
-                         for (_, _, _, m), b in zip(ranks, bits))
+        for i, k in enumerate(more):
+            aux[k] = sum(terms[2 + i][r] for r in range(dp))
         aux.update(loss=loss.detach(), noise_power=noise_pwr)
         if return_grads:
             aux["grads"] = grads
@@ -622,7 +658,14 @@ class Trainer:
         sets `generator`'s state and the batch size, and returns (state,
         start epoch, best loss, best epoch, best params, resumed)."""
         rp = None if ckpt_dir is None else os.path.join(ckpt_dir, "resume")
-        if rp is None or not ckpt.has_resume(rp):
+        found = rp is not None and ckpt.has_resume(rp)
+        if self._multiprocess() and not (pd.all_true(found, self.device)
+                                         or pd.all_true(not found,
+                                                        self.device)):
+            raise RuntimeError(f"the resume payload at {rp} is seen by some "
+                               "processes only: ckpt_dir must be a "
+                               "directory every process sees")
+        if not found:
             return state, 0, math.inf, 0, state.params, False
         payload = ckpt.restore_resume(rp, state)
         saved = payload["config_sig"]
@@ -643,12 +686,21 @@ class Trainer:
 
     def _save_resume(self, ckpt_dir, state, generator, epoch, best_loss,
                      best_epoch, best_params):
-        ckpt.save_resume(os.path.join(ckpt_dir, "resume"), state=state,
-                         generator=generator, epoch=epoch,
-                         best_loss=best_loss, best_epoch=best_epoch,
-                         best_params=best_params,
-                         batch_frames=self.batch_frames,
-                         config_sig=self._config_sig())
+        """Process 0 writes the payload; the others wait until it has."""
+        if pd.is_main_process():
+            ckpt.save_resume(os.path.join(ckpt_dir, "resume"), state=state,
+                             generator=generator, epoch=epoch,
+                             best_loss=best_loss, best_epoch=best_epoch,
+                             best_params=best_params,
+                             batch_frames=self.batch_frames,
+                             config_sig=self._config_sig())
+        if self._multiprocess():
+            pd.barrier(self.device)
+
+    def _main_log(self, log_fn):
+        """`log_fn` in process 0, a no-op in the others."""
+        return (log_fn if not self._multiprocess() or pd.is_main_process()
+                else lambda *a: None)
 
     # -- epochs (the reference's epoch/early-stop protocol) -------------------
     def fit(self, seed: int | None = None, max_epochs: int | None = None,
@@ -677,6 +729,7 @@ class Trainer:
     def _fit(self, seed, max_epochs, log_fn, grow_batch, dump_constellations,
              init_state, ckpt_dir, ckpt_every):
         tc = self.tc
+        log_fn = self._main_log(log_fn)
         seed = tc.seed if seed is None else seed
         max_epochs = tc.max_epoch_num if max_epochs is None else max_epochs
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -696,22 +749,23 @@ class Trainer:
             for _ in range(steps):
                 state, aux = self.train_step(state, gen, snr)
                 losses.append(aux[sel])
-            last_ber = float(aux["ber"])
-            epoch_loss = float(torch.stack(losses).mean())
             val = self.eval_step(state.params, gen, 1024,
                                  torch.full((1024,), tc.snr,
                                             device=self.device))
+            # the decisions' numbers: process 0's in every process
+            last_ber, epoch_loss, val_ber, val_ce = pd.agree(
+                [aux["ber"], torch.stack(losses).mean(), val["ber"],
+                 val["ce"]], self.device)
             if grow_batch:
                 self.batch_frames = self._round_to_dp(
                     self._ideal_batch_frames(last_ber))
-            if dump_constellations:
+            if dump_constellations and pd.is_main_process():
                 dump_constellation(tc.token, val["iq_tx"], val["iq_rx"],
                                    out_dir=tc.save_dir)
             history.append({"epoch": epoch, "train_loss": epoch_loss,
-                            "val_ber": float(val["ber"]),
-                            "val_loss": float(val["ce"])})
+                            "val_ber": val_ber, "val_loss": val_ce})
             log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
-                   f"val_ber={float(val['ber']):.6f}")
+                   f"val_ber={val_ber:.6f}")
             if epoch_loss < best_loss:
                 best_loss, best_epoch = epoch_loss, epoch
                 best_params = state.params

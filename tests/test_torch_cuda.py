@@ -848,3 +848,25 @@ def test_tensor_parallel_gradients_on_card(cuda):
     want = dict(zip(train, torch.autograd.grad(loss, list(train.values()))))
     for k, w in want.items():
         torch.testing.assert_close(got[k], w, rtol=2e-4, atol=1e-6, msg=k)
+
+
+def test_ring_exchange_across_processes_through_ipc(cuda, tmp_path):
+    """The ring's IPC route (`ring_ipc_alloc` / `ring_ipc_open`,
+    `ring_exchange_across`): two processes on one card, two ranks each,
+    every exchange bit-equal to the plain version over the whole ring at
+    two shapes (the epochs advance over repeated calls), and the halo FIR
+    bit-equal to `fir_same_iq`; one launch a process a call."""
+    import socket
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_worker as W
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.spawn(W.ipc_ring_worker,
+                                args=(2, port, str(tmp_path)), nprocs=2,
+                                join=True)
+    for r in range(2):
+        out = torch.load(tmp_path / f"rank{r}.pt")
+        assert out["equal"] == [True] * 5, out
+        assert out["launches"] == 5

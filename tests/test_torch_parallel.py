@@ -449,10 +449,23 @@ def test_weak_scaling_efficiency_formula():
     assert tdist.weak_scaling_efficiency({}) == {}
 
 
-def test_scaling_efficiency_harness_on_cpu_ranks():
-    tdist.initialize_multihost()                    # one process: no-op
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        tdist.initialize_multihost("localhost:1234", 2, 0)
+def test_scaling_efficiency_harness_on_cpu_ranks(monkeypatch):
+    """The harness on CPU virtual ranks; `initialize_multihost` does
+    nothing for one process and refuses what it cannot do before any
+    rendezvous (a real 2-process group: `tests/test_torch_distributed.py`)."""
+    info = tdist.initialize_multihost()             # one process: no-op
+    assert (info.world, info.backend) == (1, None)
+    with pytest.raises(ValueError, match="'nccl' needs a card"):
+        tdist.initialize_multihost("localhost:1234", 2, 0, backend="nccl",
+                                   device="cpu")
+    with pytest.raises(ValueError, match="outside 0...1"):
+        tdist.initialize_multihost("localhost:1234", 2, 2, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdist.initialize_multihost("localhost:1234", 2, 0)
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="does not match WORLD_SIZE 3"):
+        tdist.initialize_multihost("localhost:1234", 2, 0, device="cpu")
 
     def make_step(n):
         return lambda shards: [torch.sum(s * s, dim=-1) for s in shards]

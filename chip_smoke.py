@@ -240,7 +240,10 @@ Phases, each printed with its elapsed seconds:
     on dp 1 x tp 2: the tp gradients' worst error against float64 ones
     (the same trainer on the CPU) within twice the single-device float32
     gradients', the receiver frozen; d. a resumed fit on dp 2 x tp 2 at
-    nfft 256 (2 + 2 epochs against 4) bit-identical.
+    nfft 256 (2 + 2 epochs against 4) bit-identical; e.
+    `SingleGraphEqualizedRx` (nbits 2, nfft 64) as a trainer's model on
+    dp 1 x tp 2: its tp gradients' worst error against float64 ones within
+    twice the single-device float32 gradients'.
 26. multi-process data parallelism (`torch.multiprocessing`, spawn): on
     one card two processes sharing it over gloo, named explicitly after
     NCCL is shown to refuse two ranks on one card; on two or more cards
@@ -255,8 +258,24 @@ Phases, each printed with its elapsed seconds:
     through CUDA IPC (and 'ppermute' over NCCL), bit-equal to
     `fir_same_iq`, ms a call of the ring and the FIR from CUDA events and
     the host clock; d. with four cards, NCCL at 4 processes dp 4 and 2
-    processes x 2 cards dp 2 x tp 2 against their one-process meshes.  A
-    failed worker fails the run after every worker's error is printed.
+    processes x 2 cards dp 2 x tp 2 against their one-process meshes;
+    e. (run after 25) tp rows across processes: two processes (gloo on one
+    card, NCCL on two or more) at dp 1 x tp 2, 25a's configuration
+    (nfft 1,024, 64 frames) for 3 steps bit-identical to the one-process
+    dp 1 x tp 2 mesh (leaf hashes), one `complex_dense` launch a rank a
+    step in each process, ms a step and the per-step gather of the split
+    leaves beside the one-process mesh; the nfft-512 bf16 arm's gradients
+    on tp 2 across the processes within 1e-2 of each leaf's max of
+    single-device and bit-identical to the one-process tp 2, one pack and
+    one bf16 GEMM a process; f. with four cards, NCCL at 4 processes dp 2
+    x tp 2 and dp 1 x tp 4, and 2 processes x 2 cards dp 1 x tp 4, each
+    against its one-process mesh over the four cards.  A failed worker
+    fails the run after every worker's error is printed.
+27. the partitioned Doppler path (`RayleighChannel._partition_doppler`)
+    on a mixRayleigh mobile batch of 9,363 frames: `y` and `h_freq`
+    bit-equal to the general path's on the same draws, one
+    `fir_shift_accum` launch a call in each (6,242 rows against 9,363),
+    ms a call of each.
  5. (printed last) one `{"kernels": [...]}` line with all seven kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
@@ -270,7 +289,9 @@ Phases, each printed with its elapsed seconds:
     `fir_shift_accum` with `launches_multiprocess` from phase 26;
     `complex_dense` and
     `pack_stacked_weight` with `launches_tp` from phases 25a-b and the tp
-    shapes' numbers), then as the last line
+    shapes' numbers; `complex_dense` with `launches_tp_multiprocess` and
+    `launches_bf16_tp_multiprocess` from phase 26e, summed over the
+    processes), then as the last line
     `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero; so does a machine with no CUDA
@@ -2479,6 +2500,10 @@ def proc_worker(rank: int, world: int, port: int, work: str, backend: str,
         if "halo" in parts:
             out["halo"] = proc_halo(mesh, devs[0], info.backend)
             halo.release_rings()
+        if "tp" in parts:
+            out["tp"] = proc_tp(mesh, devs[0])
+        if "tp_bf16" in parts:
+            out["tp_bf16"] = proc_tp_bf16(mesh, devs[0], work)
         pd.barrier(devs[0])
         pd.shutdown()
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
@@ -2489,17 +2514,20 @@ def proc_worker(rank: int, world: int, port: int, work: str, backend: str,
 
 
 def run_procs(world: int, backend: str, per_proc: int = 1, tp: int = 1,
-              parts: tuple = ("train",)) -> list:
+              parts: tuple = ("train",), work: str | None = None) -> list:
     """`world` processes of `proc_worker` (torch.multiprocessing, spawn,
-    join=True); every worker's result.  A failed worker fails the phase
-    after every worker's error has been printed."""
+    join=True), in the directory `work` (a temporary one where None);
+    every worker's result.  A failed worker fails the phase after every
+    worker's error has been printed."""
+    import contextlib
     import socket
     import torch
     import torch.multiprocessing as mp
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as work:
+    with (tempfile.TemporaryDirectory() if work is None
+          else contextlib.nullcontext(work)) as work:
         try:
             mp.spawn(proc_worker, args=(world, port, work, backend, per_proc,
                                         tp, parts),
@@ -4113,6 +4141,328 @@ def phase_tp_resume(dev) -> dict:
     return c
 
 
+# -- 26e-f. tp rows across processes ------------------------------------------
+TP_PROC_STEPS = 3                   # checked steps (then as many timed)
+
+
+def leaf_hashes(params: dict) -> dict:
+    """sha256 of each leaf's bytes (on the host): bit-identity without
+    carrying the tensors between processes."""
+    import hashlib
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in params.items()}
+
+
+def proc_tp(mesh, dev) -> dict:
+    """Phase 25a's configuration (JAX's tp configuration: nfft 1,024,
+    nfilter 1,024, nbits 1, ETU, 5 dB, float32) at 64 frames a step on
+    `mesh` from seed 26: TP_PROC_STEPS steps with this process's
+    `complex_dense` launches (counts set to 0 just before, read just
+    after) and the gathered parameters' hashes and losses; then as many
+    steps timed (ms a step, host clock around a synchronize) and the
+    per-step gather of the split leaves (`Trainer._gathered`) timed
+    alone."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
+    from dl_ofdm_tpu_torch.parallel import distributed as pd
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=1, nfft=1024, nfilter=1024),
+                 TrainConfig(snr=5.0, batch_size=7 * TP_FRAMES[0]),
+                 channel="ETU", mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    state = tr.init_state(gen)
+    snr = torch.full((tr.batch_frames,), 5.0, device=dev)
+    k_ = tpk.complex_dense_kernel
+    torch.cuda.synchronize(dev)
+    k_.launches = k_.launches_bf16 = 0
+    losses = []
+    for _ in range(TP_PROC_STEPS):
+        state, aux = tr.train_step(state, gen, snr)
+        losses.append(float(aux["loss"]))
+    torch.cuda.synchronize(dev)
+    launches = {"float32": k_.launches, "bf16": k_.launches_bf16}
+    hashes = leaf_hashes(state.params)
+    pd.barrier(dev)
+    t = time.perf_counter()
+    for _ in range(TP_PROC_STEPS):
+        state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t) * 1e3 / TP_PROC_STEPS
+    split = [k for k, d in tr._dims.items() if d is not None]
+    leaves = tr._leaves(state.params, state.replicas, split)
+    pd.barrier(dev)
+    t = time.perf_counter()
+    for _ in range(TP_PROC_STEPS):
+        tr._gathered(leaves)
+    torch.cuda.synchronize(dev)
+    gather_ms = (time.perf_counter() - t) * 1e3 / TP_PROC_STEPS
+    return {"frames": tr.batch_frames, "losses": losses,
+            "launches": launches, "hashes": hashes, "ms_per_step": ms,
+            "gather_ms": gather_ms, "ranks": len(mesh.local_ranks),
+            "gather_bytes": sum(state.params[k].numel() * 4 for k in split),
+            "finite": bool(torch.isfinite(aux["loss"]))}
+
+
+def proc_tp_bf16(mesh, dev, work: str) -> dict:
+    """Phase 25b's gradients on `mesh`: the committed nfft-512 bf16 arm,
+    one batch drawn by the parent (`work/bf16_batch.pt`), this process's
+    pack and bf16 GEMM launches, the gathered gradients' worst error
+    against the single-device ones relative to each leaf's largest value,
+    and their hashes."""
+    import torch
+    from dl_ofdm_tpu_torch.config import TrainConfig
+    from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
+    from dl_ofdm_tpu_torch.train.checkpoint import (load_params_npz,
+                                                    params_from_flax)
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    params = {k: v.to(dev) for k, v in params_from_flax(
+        load_params_npz(BIG_ARM)).items()}
+    tc = TrainConfig(snr=5.0)
+    tr = Trainer(big512_config(), tc, channel="AWGN", mesh=mesh)
+    single = Trainer(big512_config(), tc, channel="AWGN", device=dev)
+    single.model.load_state_dict(params)
+    state = tr._new_state(params, list(params))
+    bits, rx = (t.to(dev) for t in torch.load(
+        os.path.join(work, "bf16_batch.pt")))
+    k_, p_ = tpk.complex_dense_kernel, tpk.pack_stacked_weight_kernel
+    torch.cuda.synchronize(dev)
+    k_.launches = k_.launches_bf16 = p_.launches = 0
+    g_tp = mesh_grads(tr, state, bits, rx)
+    torch.cuda.synchronize(dev)
+    launches = {"bf16": k_.launches_bf16, "pack": p_.launches,
+                "float32": k_.launches}
+    g_1d = single_grads(single, params, bits, rx)
+    err = max(float((g_tp[k] - w).abs().max() / w.abs().max())
+              for k, w in g_1d.items())
+    return {"launches": launches, "grad_err": err,
+            "hashes": leaf_hashes(g_tp)}
+
+
+def tp_one_process(dev, dp: int, tp: int, cards: bool):
+    """The one-process mesh of a grid: one rank a card where `cards`,
+    else virtual ranks of card 0."""
+    import torch
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    n = dp * tp
+    devs = ([torch.device("cuda", i) for i in range(n)] if cards
+            else [dev] * n)
+    return make_mesh(devs, dp=dp, tp=tp)
+
+
+def check_tp_procs(name: str, runs: list, ref: dict, want: dict) -> dict:
+    """Every process's hashes equal the one-process mesh's and its
+    launches `want`; returns the JSON line's fields."""
+    same = all(r["tp"]["hashes"] == ref["hashes"] for r in runs)
+    launches = [r["tp"]["launches"] for r in runs]
+    if not same:
+        bad = sorted(k for r in runs for k, v in r["tp"]["hashes"].items()
+                     if ref["hashes"][k] != v)
+        losses = [r["tp"]["losses"] for r in runs]
+        raise AssertionError(f"{name}: parameters after {TP_PROC_STEPS} "
+                             f"steps differ from the one-process mesh's at "
+                             f"{bad}; losses {losses} against "
+                             f"{ref['losses']}")
+    if any(v != want for v in launches) or not all(
+            r["tp"]["finite"] for r in runs):
+        raise AssertionError(f"{name}: complex_dense launches {launches}, "
+                             f"want {want} a process")
+    return {"bit_identical": same, "launches": launches,
+            "ms_per_step": [r["tp"]["ms_per_step"] for r in runs],
+            "one_process_ms_per_step": ref["ms_per_step"],
+            "gather_ms": [r["tp"]["gather_ms"] for r in runs],
+            "one_process_gather_ms": ref["gather_ms"],
+            "gather_bytes": ref["gather_bytes"], "losses": ref["losses"]}
+
+
+def phase_tp_processes(dev) -> dict:
+    """Phase 26e-f: tp rows across processes.  e. two processes (gloo on
+    one card, NCCL one a card on two or more) at dp 1 x tp 2: phase 25a's
+    configuration (nfft 1,024) for 3 steps bit-identical to the
+    one-process dp 1 x tp 2 mesh, one `complex_dense` launch a rank a step
+    in each process, ms a step and the per-step gather's ms beside the
+    one-process mesh; then the nfft-512 bf16 arm's gradients on tp 2
+    across the processes, within 1e-2 of each leaf's max of single-device
+    (25b's rule), bit-identical to the one-process tp 2, one pack and one
+    bf16 GEMM a process.  f. with four cards, NCCL at 4 processes dp 2 x
+    tp 2 and dp 1 x tp 4 and 2 processes x 2 cards dp 1 x tp 4, each
+    against its one-process mesh over the four cards.  Returns the
+    kernels-line fields."""
+    import torch
+    n = torch.cuda.device_count()
+    backend = "nccl" if n >= PROC_N else "gloo"
+    cards = n >= PROC_N
+    from dl_ofdm_tpu_torch.config import TrainConfig
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    gen = torch.Generator(device=dev).manual_seed(262)
+    single = Trainer(big512_config(), TrainConfig(snr=5.0), channel="AWGN",
+                     device=dev)
+    b = single.batch_frames
+    bits, rx, _, _, _ = single.synthesize(
+        b, torch.full((b,), 5.0, device=dev), gen)
+    with tempfile.TemporaryDirectory() as work:
+        torch.save((bits.cpu(), rx.cpu()), os.path.join(work,
+                                                        "bf16_batch.pt"))
+        runs = run_procs(PROC_N, backend, tp=PROC_N,
+                         parts=("tp", "tp_bf16"), work=work)
+        mesh = tp_one_process(dev, 1, PROC_N, cards)
+        ref = proc_tp(mesh, dev)
+        ref_bf16 = proc_tp_bf16(mesh, dev, work)
+    line = check_tp_procs("26e nfft-1024 tp 2 across processes", runs, ref,
+                          {"float32": TP_PROC_STEPS, "bf16": 0})
+    bf = [r["tp_bf16"] for r in runs]
+    bf_same = all(r["hashes"] == ref_bf16["hashes"] for r in bf)
+    bf_err = max(r["grad_err"] for r in bf)
+    want = {"bf16": 1, "pack": 1, "float32": 0}
+    if not bf_same or bf_err > 1e-2 or any(r["launches"] != want
+                                           for r in bf):
+        raise AssertionError(
+            f"26e nfft-512 bf16 tp 2 across processes: bit-identical "
+            f"{bf_same}, worst {bf_err:.3g} of a leaf max (1e-2), launches "
+            f"{[r['launches'] for r in bf]} (want {want} a process)")
+    out = {"float32": sum(v["float32"] for v in line["launches"]),
+           "bf16": sum(r["launches"]["bf16"] for r in bf),
+           "pack": sum(r["launches"]["pack"] for r in bf)}
+    print(json.dumps({"phase": 26, "part": "e", "backend": backend,
+                      "processes": PROC_N, "dp": 1, "tp": PROC_N,
+                      "config": "nfft 1024, nfilter 1024, nbits 1, ETU, "
+                      "float32", "frames": ref["frames"],
+                      "steps": TP_PROC_STEPS, **line,
+                      "bf16_bit_identical": bf_same, "bf16_grad_err": bf_err,
+                      "bf16_launches": [r["launches"] for r in bf]}),
+          flush=True)
+    log(f"26e dp 1 x tp {PROC_N} over {PROC_N} processes ({backend}), "
+        f"nfft 1,024 at {ref['frames']} frames: {TP_PROC_STEPS} steps "
+        f"bit-identical to the one-process mesh; complex_dense "
+        f"{line['launches']} launches a process; "
+        f"{max(line['ms_per_step']):.3f} ms a step against "
+        f"{ref['ms_per_step']:.3f} in one process; the per-step gather of "
+        f"{ref['gather_bytes'] / 1e6:.1f} MB "
+        f"{max(line['gather_ms']):.3f} ms (one process "
+        f"{ref['gather_ms']:.3f}); nfft-512 bf16 gradients within "
+        f"{bf_err:.3g} of single-device, bit-identical {bf_same}")
+    if n < 4:
+        log(f"26f not run: {n} card(s)")
+        return out
+    for world, per, tp in ((4, 1, 2), (4, 1, 4), (2, 2, 4)):
+        runs4 = run_procs(world, "nccl", per_proc=per, tp=tp, parts=("tp",))
+        ref4 = proc_tp(tp_one_process(dev, 4 // tp, tp, True), dev)
+        line4 = check_tp_procs(f"26f {world} x {per} tp {tp}", runs4, ref4,
+                               {"float32": TP_PROC_STEPS * per, "bf16": 0})
+        print(json.dumps({"phase": 26, "part": "f", "processes": world,
+                          "cards_a_process": per, "dp": 4 // tp, "tp": tp,
+                          **line4}), flush=True)
+        log(f"26f NCCL {world} processes x {per} card(s), dp {4 // tp} x tp "
+            f"{tp}: bit-identical; {max(line4['ms_per_step']):.3f} ms a step "
+            f"against {ref4['ms_per_step']:.3f} in one process; gather "
+            f"{max(line4['gather_ms']):.3f} ms")
+    return out
+
+
+# -- 27. the partitioned Doppler path ---------------------------------------
+PART_FRAMES = 9363                  # 3 x 3,121: mixRayleigh mobile
+
+
+def phase_partition_doppler(tpk, dev) -> dict:
+    """Phase 27: `RayleighChannel._partition_doppler` on a mixRayleigh
+    mobile batch of 9,363 frames (every third frame Doppler): `y` and
+    `h_freq` bit-equal to the general path's on the same draws, each
+    path's `fir_shift_accum` launches (counts set to 0 just before, read
+    just after: one a call, on 6,242 rows against 9,363) and ms a call
+    (CUDA events, 20 calls, each path twice, interleaved)."""
+    import torch
+    from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
+    ch = RayleighChannel("mixRayleigh", nfft=64, mobile=True, mix=True)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tx = torch.randn(PART_FRAMES, 7, 80, 2, device=dev, generator=gen)
+    zck = torch.randn(PART_FRAMES, ch.max_taps, 2, device=dev,
+                      generator=gen) / 2 ** 0.5
+    from dl_ofdm_tpu_torch.channel.doppler import jakes_phases
+    theta = jakes_phases(PART_FRAMES, ch.max_taps, gen, dev)
+    outs, launches, ms = {}, {}, {"partitioned": [], "general": []}
+    k_ = tpk.fir_shift_accum_kernel
+    for name, part in (("partitioned", True), ("general", False)):
+        ch._partition_doppler = part
+        torch.cuda.synchronize()
+        k_.launches = 0
+        outs[name] = ch(tx, zck=zck, theta=theta)
+        torch.cuda.synchronize()
+        launches[name] = k_.launches
+    for name in ("partitioned", "general", "general", "partitioned"):
+        ch._partition_doppler = name == "partitioned"
+        ms[name].append(events_ms(lambda: ch(tx, zck=zck, theta=theta), 20))
+    ch._partition_doppler = False
+    same = (torch.equal(outs["partitioned"].y, outs["general"].y)
+            and torch.equal(outs["partitioned"].h_freq,
+                            outs["general"].h_freq))
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    line = {"phase": 27, "frames": PART_FRAMES, "bit_equal": same,
+            "fir_shift_accum_launches": launches, "ms_per_call": ms}
+    print(json.dumps(line), flush=True)
+    log(f"27 partitioned Doppler path at {PART_FRAMES} frames: y and "
+        f"h_freq bit-equal to the general path {same}; fir_shift_accum "
+        f"launches {launches}; ms a call {ms}")
+    if not same or launches != {"partitioned": 1, "general": 1}:
+        raise AssertionError(f"phase 27: {line}")
+    return line
+
+
+def phase_sg_tp(dev) -> dict:
+    """Phase 25e: `SingleGraphEqualizedRx` (nbits 2, nfft 64, nfilter 64)
+    as a trainer's model on dp 1 x tp 2 of the card: `fft_like`,
+    `Dense_interp*` and `Dense_extract` split; its float32 tp gradients'
+    worst error against the float64 ones of the same model on the CPU,
+    relative to each leaf's largest value, within twice the single-device
+    float32 gradients' (the rule of `tests/test_torch_tp.py` for the
+    equalizer in float32)."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.models.receiver import SingleGraphEqualizedRx
+    from dl_ofdm_tpu_torch.ofdm.plan import build_plan
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    cfg, tc = OFDMConfig(nbits=2), TrainConfig(snr=10.0)
+    plan = build_plan(cfg)
+
+    def make(**kw):
+        model = SingleGraphEqualizedRx(2, 64, plan.cp_len, 64,
+                                       plan.frame_size, 7, plan.pilot_size)
+        return Trainer(cfg, tc, channel="EPA", model=model, **kw)
+
+    tr = make(mesh=tp_one_process(dev, 1, TP_TP, False))
+    single, ref = make(device=dev), make(device="cpu")
+    params = single.init_state(torch.Generator(device=dev)
+                               .manual_seed(255)).params
+    state = tr._new_state(params, list(params))
+    b = tr.batch_frames
+    bits, rx, _, _, _ = single.synthesize(
+        b, torch.full((b,), 10.0, device=dev),
+        torch.Generator(device=dev).manual_seed(256))
+    g_tp = mesh_grads(tr, state, bits, rx)
+    g_1d = single_grads(single, params, bits, rx)
+    ref.model.double()
+    g_64 = single_grads(ref, {k: v.double().cpu() for k, v in params.items()},
+                        bits.cpu(), rx.double().cpu())
+    split = sorted(k for k, d in tr._dims.items() if d is not None)
+
+    def worst(g):
+        return max(float((g[k].double().cpu() - v).abs().max()
+                         / v.abs().max()) for k, v in g_64.items())
+
+    w_tp, w_1d = worst(g_tp), worst(g_1d)
+    line = {"phase": 25, "part": "e", "model": "SingleGraphEqualizedRx",
+            "frames": b, "split": split,
+            "worst_rel_err_tp_vs_float64": w_tp,
+            "worst_rel_err_single_vs_float64": w_1d}
+    print(json.dumps(line), flush=True)
+    log(f"SingleGraphEqualizedRx tp (dp 1 x tp 2): {len(split)} split "
+        f"leaves; gradients against float64 {w_tp:.3g} (single-device "
+        f"float32 {w_1d:.3g})")
+    if not w_tp <= 2 * w_1d:
+        raise AssertionError(f"SingleGraphEqualizedRx tp gradients: {line}")
+    return line
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4345,6 +4695,11 @@ def main() -> None:
     tp_512 = phase_tp_big512(tpk, dev, hbm_bps, peak_key)
     phase_tp_equalizer(tpk, dev)
     phase_tp_resume(dev)
+    phase_sg_tp(dev)
+
+    # -- 26e-f, 27. tp rows across processes, the partitioned Doppler path ---
+    tp_procs = phase_tp_processes(dev)
+    phase_partition_doppler(tpk, dev)
 
     # -- 17-18, 21, 23. the profiled phases -----------------------------------
     phase_profile_eq(dev)
@@ -4407,6 +4762,8 @@ def main() -> None:
         launches_tp=tp_big["launches"],
         launches_multiprocess=procs["complex_dense"],
         launches_bf16_tp=tp_512["launches_bf16"],
+        launches_tp_multiprocess=tp_procs["float32"],
+        launches_bf16_tp_multiprocess=tp_procs["bf16"],
         tp_shapes={"x".join(map(str, sh["shape"])) + f" {sh['mode']}": {
             k: sh[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by")}

@@ -14,8 +14,12 @@ Port of `dl_ofdm_tpu/channel/rayleigh.py:58-206` (reference
     a unit tap; with `mix` on, Doppler applies to every 3rd (resp. 4th)
     frame.
 
-The JAX package's opt-in `_partition_doppler` path (`rayleigh.py:172-196`,
-off by default, same `y`) is not ported.
+`_partition_doppler = True` (off by default, `rayleigh.py:172-196`) takes
+JAX's partitioned path where mixRayleigh's Doppler mask is exactly every
+third frame of a batch of 3n frames: the per-symbol FIR on rows 0 mod 3
+only and the static FIR on the other rows only (on a card one
+`fir_shift_accum` launch on 2n rows), with `y` and `h_freq` bit-equal to
+the general path's.
 """
 from __future__ import annotations
 
@@ -47,6 +51,9 @@ def _pad_to(a: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
 
 class RayleighChannel:
     """Callable channel simulator: tx_iq [B, S, n_sc, 2] -> ChannelOut."""
+
+    # opt-in: partition a mixRayleigh Doppler batch (see the module note)
+    _partition_doppler = False
 
     def __init__(self, channel: str = "etu", nfft: int = 64,
                  sample_rate: float = 0.96e6, mobile: bool = False,
@@ -141,9 +148,9 @@ class RayleighChannel:
 
         # per-frame FIR kernel: gt = (zck * coeff) @ alpha
         gt = torch.einsum("btc,btf->bfc", zck * coeff[..., None], alpha)
-        y = fir.fir_same_iq(tx.reshape(b, s * n_sc, 2), gt,
-                            offsets).reshape(b, s, n_sc, 2)
         if not (self.has_doppler and dop_mask.any()):
+            y = fir.fir_same_iq(tx.reshape(b, s * n_sc, 2), gt,
+                                offsets).reshape(b, s, n_sc, 2)
             h_freq = cfloat.dft_iq(gt, self.nfft)[:, None].expand(
                 b, s, self.nfft, 2)
             return ChannelOut(y=y, h_freq=h_freq)
@@ -162,6 +169,22 @@ class RayleighChannel:
         gt_s = torch.einsum("bstc,btf->bsfc", zck_s * coeff[:, None, :, None],
                             alpha)                      # [B, S, max_fir, 2]
         h_freq = cfloat.dft_iq(gt_s, self.nfft)         # [B, S, nfft, 2]
+        if (self._partition_doppler and self.channel == "mixrayleigh"
+                and b % 3 == 0 and dop_mask[::3].all()
+                and not dop_mask.reshape(-1, 3)[:, 1:].any()):
+            # each FIR on its own rows only; a row's output is its own in
+            # both FIRs, so the rows are bit-equal to the general path's
+            n = b // 3
+            y_dop = fir.fir_per_symbol_iq(tx[::3], gt_s[::3], self.max_taps,
+                                          offsets[::3])
+            sta = torch.from_numpy(np.flatnonzero(~dop_mask)).to(dev)
+            y_sta = fir.fir_same_iq(tx[sta].reshape(2 * n, s * n_sc, 2),
+                                    gt[sta], offsets[~dop_mask])
+            y = torch.cat([y_dop[:, None],
+                           y_sta.reshape(n, 2, s, n_sc, 2)], dim=1)
+            return ChannelOut(y=y.reshape(b, s, n_sc, 2), h_freq=h_freq)
+        y = fir.fir_same_iq(tx.reshape(b, s * n_sc, 2), gt,
+                            offsets).reshape(b, s, n_sc, 2)
         y_dop = fir.fir_per_symbol_iq(tx, gt_s, self.max_taps, offsets)
         return ChannelOut(y=torch.where(dop, y_dop, y), h_freq=h_freq)
 

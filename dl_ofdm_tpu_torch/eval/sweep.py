@@ -41,8 +41,11 @@ generator.
     how many frames a point were evaluated.
 
 On a mesh over a group of processes (`parallel/distributed.py`) each
-process sweeps its own dp rows; every row keeps its own error and CE
-sums, and the rows are combined once at the end
+process sweeps the dp rows it owns (a row's owner is the process of its
+tp rank 0; with tp rows across processes the other processes of a row
+sweep nothing: the sweep takes the trainer's model, with the gathered
+parameters, so it is the dp protocol there too); every row keeps its own
+error and CE sums, and the rows are combined once at the end
 (`parallel.mesh.gather_rows`) and summed in row order, as the
 one-process mesh sums them, so both give the same counts.  The
 point_batch moments take their sums over every row (`global_moments`).
@@ -177,24 +180,28 @@ def _sweep_result(trainer, snrs, tot_err, tot_ce, frames: int,
                        np.asarray(losses))
 
 
-def global_moments(ys: list, device: torch.device, mesh=None):
+def global_moments(ys: list, device: torch.device, mesh=None,
+                   like: torch.Tensor | None = None):
     """Per-position (mean, population variance) over the concatenation of
-    the ranks' batches `ys` (every row of `mesh`: the local rows' batches,
-    the other processes' through `gather_rows`; equal shards), on
-    `device`, in two passes: the mean from the shards' sums, then the
-    variance from the shards' summed centred squares (summed in rank
-    order)."""
+    the ranks' batches `ys` (every row of `mesh`: the batches of the rows
+    this process owns, the other processes' through `gather_rows`; equal
+    shards), on `device`, in two passes: the mean from the shards' sums,
+    then the variance from the shards' summed centred squares (summed in
+    rank order).  `like`, a row's batch (its shape and dtype), where this
+    process owns no row."""
     if mesh is None:
         grid = np.empty((len(ys), 1), dtype=object)
         grid[:, 0] = [y.device for y in ys]
         mesh = Mesh(grid)
     dp = mesh.shape["dp"]
-    n = ys[0].shape[0] * dp
+    like = ys[0] if ys else like
+    n = like.shape[0] * dp
+    one = [like.new_zeros((1, *like.shape[1:]))]
     sums = gather_rows(mesh, [[y.sum(dim=0, keepdim=True)] for y in ys],
-                       device)[0]
+                       device, like=one)[0]
     mean = sum(sums[r] for r in range(dp)) / n
     sq = gather_rows(mesh, [[((y - mean.to(y.device)) ** 2).sum(
-        dim=0, keepdim=True)] for y in ys], device)[0]
+        dim=0, keepdim=True)] for y in ys], device, like=one)[0]
     var = sum(sq[r] for r in range(dp)) / n
     return mean, var
 
@@ -204,14 +211,15 @@ def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                     batch_frames: int, log_fn, point_batch: bool,
                     mesh) -> SweepResult:
     """`ber_sweep` over the dp rows of a mesh (see the module note)."""
-    devs, rows = mesh.local_dp_devices, mesh.local_rows
+    rows = mesh.owned_rows
+    devs = [mesh.row_device(r) for r in rows]
     dp, dev0 = mesh.shape["dp"], mesh.home
     if mesh.multiprocess and not pd.is_main_process():
         log_fn = lambda *a: None  # noqa: E731
     models = module_replicas(trainer.model, devs)
-    gens = rank_generators(generator, devs, rows)
+    gens = rank_generators(generator, devs, rows, dev0)
     n_pts = len(snrs)
-    # each local row's sums, on its device
+    # each owned row's sums, on its device
     row_err = [torch.zeros(n_pts, dtype=torch.int64, device=d) for d in devs]
     row_ce = [torch.zeros(n_pts, dtype=torch.float64, device=d)
               for d in devs]
@@ -234,8 +242,11 @@ def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                 out = [trainer.synthesize(shard, s, g, normalize=False,
                                           device=d)
                        for s, g, d in zip(snr_vecs, gens, devs)]
-                mean, var = global_moments([y for _, y, *_ in out], dev0,
-                                           mesh)
+                plan = trainer.plan
+                mean, var = global_moments(
+                    [y for _, y, *_ in out], dev0, mesh, like=torch.zeros(
+                        shard, plan.nsymbol, plan.samples_per_symbol, 2,
+                        device=dev0))
                 for (bits, y, *_), d, err, ce in zip(out, devs, row_err,
                                                      row_ce):
                     logits = first_output(models[d](
@@ -257,7 +268,9 @@ def _ber_sweep_mesh(trainer, generator, snrs, frames_per_point: int,
                 err += errors
                 ce += ce_
     errs, ces = gather_rows(mesh, [[e, c] for e, c in zip(row_err, row_ce)],
-                            dev0)
+                            dev0, like=[
+                                torch.zeros(n_pts, dtype=torch.int64),
+                                torch.zeros(n_pts, dtype=torch.float64)])
     return _sweep_result(trainer, snrs, sum(errs[r] for r in range(dp)),
                          sum(ces[r] for r in range(dp)), frames, log_fn)
 

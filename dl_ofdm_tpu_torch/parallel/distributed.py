@@ -7,14 +7,19 @@ GSPMD turning the jitted step into one program a process.  The port's is
 `initialize_multihost` (a `torch.distributed` process group: NCCL where
 the process's device is a card, gloo on the CPU) plus `make_mesh`, which
 over a group of W > 1 processes builds the global [dp, tp] grid with the
-ranks ordered by process (`parallel/mesh.py`).  Each process then walks
-only its own dp rows, and the trainer and the sweeps combine the rows
-with the collectives below.  As JAX lays out a pod (dp over DCN+ICI, tp
-within a slice), a tp row lies within one process.
+ranks ordered by process (`parallel/mesh.py`), as `jax.devices()` orders
+them.  A process owns ranks, not whole rows: a tp row may span processes
+(torchrun's one process a card runs tp > 1 that way), and the mesh makes
+one process group a row and one a tp column (`subgroups`) for the
+collectives inside a row (`parallel/tp.py`) and over a column's rows (the
+split leaves' gradients).  Each process walks only the rows it holds a
+rank of, and the trainer and the sweeps combine the rows with the
+collectives below.
 
 The collectives use only `all_reduce` and `broadcast` on tensors (the two
 that gloo also takes on card tensors, so one code path runs on NCCL and
-on gloo) and `*_object` calls for host metadata.  `scaling_efficiency`
+on gloo, two processes sharing a card included) and `*_object` calls for
+host metadata.  `scaling_efficiency`
 times a step at several mesh widths, with CUDA events on a card and
 `time.perf_counter` on the CPU, on every process, and reports on process
 0 the slowest process's time.
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import socket
 import time
@@ -35,9 +41,8 @@ from dl_ofdm_tpu_torch import resolve_device
 # a process that dies turns its partners' next collective into an error
 # after this long, not a hang
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
-TP_ACROSS_PROCESSES = ("a tp row across processes is not ported yet: "
-                       "ROADMAP.md Queue A item 17 (tp within a process, "
-                       "dp across processes)")
+# the group's timeout, given to the groups `subgroups` makes
+_timeout = DEFAULT_TIMEOUT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +191,8 @@ def initialize_multihost(coordinator: str | None = None,
                 f"{num_processes} (rank {process_id})")
         return ProcessInfo(process_id, num_processes, dev,
                            dist.get_backend())
+    global _timeout
+    _timeout = timeout
     store = _store(coordinator, num_processes, process_id, timeout)
     if backend == "nccl":
         check_one_rank_a_card(store_gather(store, process_id, num_processes,
@@ -201,20 +208,83 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def subgroups(members: list[list[int]]) -> list:
+    """One process group for each list of processes in `members`, made in
+    the same order in every process (`dist.new_group` is a collective of
+    the default group, so every process calls this with the same lists):
+    None for a list of one process (it needs no collective), the default
+    group for all of them.  The groups take the default group's timeout."""
+    out = []
+    for ranks in members:
+        ranks = sorted(set(ranks))
+        if len(ranks) == 1:
+            out.append(None)
+        elif len(ranks) == process_count():
+            out.append(dist.group.WORLD)
+        else:
+            out.append(dist.new_group(ranks, timeout=_timeout))
+    return out
+
+
 # -- collectives (no-ops for one process) ---------------------------------------
 
-def all_sum_(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the processes, in place."""
+def all_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """`t` summed over the processes (of `group`, the default group where
+    None), in place."""
     if process_count() > 1:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """`t` of process `src` in every process, in place."""
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """`t` of process `src` (its rank in the default group) in every
+    process (of `group`), in place."""
     if process_count() > 1:
-        dist.broadcast(t, src)
+        dist.broadcast(t, src, group=group)
     return t
+
+
+# dtypes `broadcast_tensors` carries, by their index in its header
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+           torch.int32, torch.int64, torch.uint8, torch.bool)
+_HEADER = 64
+
+
+def broadcast_tensors(tensors: list | None, src: int, group,
+                      device) -> list[torch.Tensor]:
+    """Process `src`'s `tensors` (None in the other processes, which need
+    not know their shapes) in every process of `group`, on `device`: a
+    header of their dtypes and shapes, then their bytes in one buffer
+    (each tensor's on an 8-byte boundary), two `broadcast`s.  Exact."""
+    head = torch.zeros(_HEADER, dtype=torch.int64, device=device)
+    if tensors is not None:
+        enc = [len(tensors)]
+        for t in tensors:
+            enc += [_DTYPES.index(t.dtype), t.dim(), *t.shape]
+        if len(enc) > _HEADER:
+            raise ValueError(f"{len(tensors)} tensors of ranks "
+                             f"{[t.dim() for t in tensors]}: a header of "
+                             f"{len(enc)} numbers, more than {_HEADER}")
+        head[:len(enc)] = torch.tensor(enc)
+    dist.broadcast(head, src, group=group)
+    enc, i, specs = head.tolist(), 1, []
+    for _ in range(enc[0]):
+        dtype, ndim = _DTYPES[enc[i]], enc[i + 1]
+        specs.append((dtype, tuple(enc[i + 2:i + 2 + ndim])))
+        i += 2 + ndim
+    sizes = [math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+             for dtype, shape in specs]
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + -(-n // 8) * 8)
+    buf = torch.zeros(offs[-1], dtype=torch.uint8, device=device)
+    if tensors is not None:
+        for t, o, n in zip(tensors, offs, sizes):
+            buf[o:o + n] = t.detach().contiguous().reshape(-1).view(
+                torch.uint8).to(device)
+    dist.broadcast(buf, src, group=group)
+    return [buf[o:o + n].view(dtype).reshape(shape)
+            for (dtype, shape), o, n in zip(specs, offs, sizes)]
 
 
 def agree(values, device) -> list[float]:

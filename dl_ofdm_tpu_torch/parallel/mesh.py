@@ -7,11 +7,13 @@ same idea without GSPMD: a [dp, tp] grid of `torch.device`s that the
 trainer and the sweeps walk rank by rank.  In a `torch.distributed` group
 of W > 1 processes (`parallel/distributed.py::initialize_multihost`)
 `make_mesh` builds the global grid, the ranks ordered by process as
-`jax.devices()` orders them: each process owns whole dp rows (its
-`local_rows`) and walks only those, and a tp row lies within one process
-(a layout that would split one raises, ROADMAP.md Queue A item 17).
-`gather_rows` combines what the rows computed, over the processes, in row
-order, so a step or a sweep gives the numbers the one-process mesh gives.
+`jax.devices()` orders them: each process owns ranks (its
+`local_ranks`) and walks the rows it holds a rank of; a tp row may span
+processes (torchrun's one process a card, tp > 1), and then its ranks
+meet through the row's process group (`parallel/tp.py`).  `gather_rows`
+combines what the rows computed, over the processes, in row order, and
+`gather_shards` makes split leaves whole, so a step or a sweep gives the
+numbers the one-process mesh gives.
 
   * 'dp': each dp row draws, normalizes and evaluates its own shard of the
     frames with its own copy of the parameters; the gradients and the
@@ -19,9 +21,10 @@ order, so a step or a sweep gives the numbers the one-process mesh gives.
     `train/loop.py`, and the sweeps, `eval/sweep.py`);
   * 'tp': the learned-DFT filter axis and the wide dense layers are split
     over the tp ranks of each row by JAX's partition rules (`_RULES`):
-    `shard_params` gives every (dp, tp) rank the block of each leaf that
-    JAX's `NamedSharding` puts on that device, `gather_params` is its
-    inverse, and `parallel/tp.py` runs the forward pass on the shards.
+    `shard_params` gives every (dp, tp) rank of this process the block of
+    each leaf that JAX's `NamedSharding` puts on that device,
+    `gather_params` is its inverse (over the processes too), and
+    `parallel/tp.py` runs the forward pass on the shards.
 
 A device may appear more than once: each appearance is a virtual rank with
 buffers of its own, as JAX's virtual CPU devices are.  So one card, listed
@@ -62,15 +65,23 @@ class Mesh:
 
     `process` holds the process of each rank (all 0 in one process);
     `process_index` is this process.  A device of another process is
-    that process's name for it.  `local_rows` are the dp rows this
-    process owns, `local_ranks` their ranks (row-major indices),
-    `local_dp_devices` their devices and `home` the first one's: where
-    this process keeps the parameters and its generator."""
+    that process's name for it.  A process owns ranks: `local_ranks` are
+    this process's (row-major indices), `local_rows` the rows it holds a
+    rank of, `local_tps` the tp indices of its ranks; a row's `owner` is
+    the process of its tp rank 0, the one that draws the row's frames and
+    whose values of the row count (`owned_rows`); `row_device(row)` is
+    this process's first device in the row, where it runs the row's
+    replicated layers; `home` is its first rank's device: where it keeps
+    the parameters and its generator, and runs its collectives.
+    `row_groups[row]` and `col_groups[t]` are the process groups of a row
+    and of a tp column (None where one process holds all of it), made by
+    `make_mesh`."""
 
     axis_names = ("dp", "tp")
 
     def __init__(self, devices: np.ndarray, process: np.ndarray | None = None,
-                 process_index: int = 0):
+                 process_index: int = 0, row_groups: list | None = None,
+                 col_groups: list | None = None):
         if devices.ndim != 2:
             raise ValueError(f"a mesh is a [dp, tp] grid, got shape "
                              f"{devices.shape}")
@@ -79,19 +90,44 @@ class Mesh:
         self.process = (np.zeros(devices.shape, dtype=int) if process is None
                         else process)
         self.process_index = process_index
-        if (self.process != self.process[:, :1]).any():
-            raise NotImplementedError(pd.TP_ACROSS_PROCESSES)
-        self.local_rows = [r for r in range(devices.shape[0])
-                           if self.process[r, 0] == process_index]
-        if not self.local_rows:
-            raise ValueError(f"process {process_index} owns no dp row")
-        tp = devices.shape[1]
-        self.local_ranks = [r * tp + t for r in self.local_rows
-                            for t in range(tp)]
+        dp, tp = devices.shape
+        self.local_ranks = [int(r) for r in
+                            np.flatnonzero(self.process == process_index)]
+        if not self.local_ranks:
+            raise ValueError(f"process {process_index} owns no rank")
+        self.local_rows = sorted({r // tp for r in self.local_ranks})
+        self.local_tps = sorted({r % tp for r in self.local_ranks})
+        self.owned_rows = [r for r in self.local_rows
+                           if self.owner(r) == process_index]
+        self.row_groups = row_groups or [None] * dp
+        self.col_groups = col_groups or [None] * tp
+        # every process holds a rank of every tp column (then no split
+        # leaf needs another process's shard)
+        self.tps_local = all(
+            set(range(tp)) == {i % tp for i in np.flatnonzero(
+                self.process == p)} for p in np.unique(self.process))
 
     @property
     def multiprocess(self) -> bool:
         return bool(self.process.any())
+
+    def owner(self, row: int) -> int:
+        return int(self.process[row, 0])
+
+    def row_slots(self, row: int) -> list[int]:
+        """The positions in `local_ranks` of this process's ranks of
+        `row`, in tp order."""
+        tp = self.shape["tp"]
+        return [i for i, r in enumerate(self.local_ranks) if r // tp == row]
+
+    def tp_slot(self, t: int) -> int:
+        """The position in `local_ranks` of this process's first rank with
+        tp index `t`: the shard the optimizer steps."""
+        tp = self.shape["tp"]
+        return next(i for i, r in enumerate(self.local_ranks) if r % tp == t)
+
+    def row_device(self, row: int) -> torch.device:
+        return self.devices.flat[self.local_ranks[self.row_slots(row)[0]]]
 
     @property
     def dp_devices(self) -> list[torch.device]:
@@ -99,11 +135,11 @@ class Mesh:
 
     @property
     def local_dp_devices(self) -> list[torch.device]:
-        return [self.devices[r, 0] for r in self.local_rows]
+        return [self.row_device(r) for r in self.local_rows]
 
     @property
     def home(self) -> torch.device:
-        return self.devices[self.local_rows[0], 0]
+        return self.devices.flat[self.local_ranks[0]]
 
     def tp_devices(self, row: int = 0) -> list[torch.device]:
         return list(self.devices[row])
@@ -113,7 +149,7 @@ class Mesh:
         return list(self.devices.flat)
 
     def __repr__(self) -> str:
-        procs = (f", processes {self.process[:, 0].tolist()}"
+        procs = (f", processes {self.process.tolist()}"
                  if self.multiprocess else "")
         return (f"Mesh({self.shape}, "
                 f"{[str(d) for d in self.devices.flat]}{procs})")
@@ -128,10 +164,11 @@ def make_mesh(devices: Sequence | None = None, dp: int | None = None,
 
     In a group of W > 1 processes, `devices` are this process's own (its
     current card when None), every process names as many, and the mesh
-    is the global grid over all of them in process order: dp * tp must be
-    W times that count.  A tp that does not divide a process's count
-    would split a tp row over processes and raises
-    `NotImplementedError`."""
+    is JAX's global grid over all of them in process order: dp * tp must
+    be W times that count, and a tp row may span processes (any tp, one
+    that does not divide a process's count too).  Every process of the
+    group calls it alike: it makes the process groups of the rows and of
+    the tp columns."""
     world = pd.process_count()
     if devices is None:
         resolve_device()
@@ -144,10 +181,6 @@ def make_mesh(devices: Sequence | None = None, dp: int | None = None,
         if len({len(n) for n in names}) != 1:
             raise ValueError(f"the processes name different device counts: "
                              f"{[len(n) for n in names]}")
-        if len(devices) % tp:
-            raise NotImplementedError(
-                f"tp={tp} over {len(devices)} device(s) a process: "
-                + pd.TP_ACROSS_PROCESSES)
         me = pd.process_index()
         devices = [d if p == me else torch.device(name)
                    for p, ns in enumerate(names)
@@ -161,37 +194,60 @@ def make_mesh(devices: Sequence | None = None, dp: int | None = None,
     grid = np.empty((dp, tp), dtype=object)
     for i, d in enumerate(devices):
         grid[i // tp, i % tp] = d
-    return Mesh(grid, process.reshape(dp, tp), pd.process_index())
+    process = process.reshape(dp, tp)
+    rows = cols = None
+    if world > 1:
+        rows = pd.subgroups([list(process[r]) for r in range(dp)])
+        cols = pd.subgroups([list(process[:, t]) for t in range(tp)])
+    return Mesh(grid, process, pd.process_index(), rows, cols)
 
 
-def gather_rows(mesh: Mesh, rows: list[list], device=None) -> list:
-    """What the local dp rows computed, over every row of the mesh: `rows`
-    holds, for each local row in order, a list of tensors (alike from row
-    to row); returns, for each position, a tensor [dp, ...] of every
-    row's tensor in global row order, on `device` (each tensor's own
-    device where None).  Across processes one `all_reduce` a (device,
-    dtype) of a buffer that holds each row's values in its slot and zeros
-    elsewhere, so the rows arrive exact and a caller that sums them in
-    row order repeats the one-process mesh's sums bit for bit."""
+def exchange(slots: dict, n: int, like: list, group,
+             device) -> list[torch.Tensor]:
+    """The slot-buffer all-gather: for each position i of `like` (tensors
+    as each slot holds them), a tensor [n, *like[i].shape] on `device`
+    whose slot s holds `slots[s][i]` of the one process of `group` (the
+    default group where None) that has slot s.  One `all_reduce` a dtype
+    of a buffer zero outside each process's slots, so the values arrive
+    exact (but for -0.0, which comes back +0.0)."""
+    out = [None] * len(like)
+    by_dtype: dict = {}
+    for i, t in enumerate(like):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        sizes = [like[i].numel() for i in idx]
+        buf = torch.zeros(n, sum(sizes), dtype=dtype, device=device)
+        for s, ts in slots.items():
+            buf[s] = torch.cat([ts[i].detach().reshape(-1).to(device)
+                                for i in idx])
+        pd.all_sum_(buf, group)
+        for i, part in zip(idx, buf.split(sizes, dim=1)):
+            out[i] = part.reshape(n, *like[i].shape)
+    return out
+
+
+def gather_rows(mesh: Mesh, rows: list[list], device=None,
+                like: list | None = None) -> list:
+    """What the dp rows computed, over every row of the mesh: `rows`
+    holds, for each row this process owns (`mesh.owned_rows`, every row
+    in one process) in order, a list of tensors (alike from row to row);
+    returns, for each position, a tensor [dp, ...] of every row's tensor
+    in global row order, on `device` (each tensor's own device where
+    None).  `like` (tensors shaped as a row's) is needed where this
+    process owns no row.  Across processes one `all_reduce` a dtype of a
+    slot buffer on `mesh.home` (`exchange`), each row's values written by
+    its owner alone (the other processes of a row hold the same values),
+    so a caller that sums the rows in row order repeats the one-process
+    mesh's sums bit for bit."""
+    like = rows[0] if rows else like
     dest = [t.device if device is None else torch.device(device)
-            for t in rows[0]]
+            for t in like]
     if not mesh.multiprocess:
         return [torch.stack([r[i].to(dest[i]) for r in rows])
                 for i in range(len(dest))]
-    dp = mesh.shape["dp"]
-    groups: dict[tuple, list[int]] = {}
-    for i, t in enumerate(rows[0]):
-        groups.setdefault((dest[i], t.dtype), []).append(i)
-    out = [None] * len(dest)
-    for (dev, dtype), idx in groups.items():
-        sizes = [rows[0][i].numel() for i in idx]
-        buf = torch.zeros(dp, sum(sizes), dtype=dtype, device=dev)
-        for row, r in zip(mesh.local_rows, rows):
-            buf[row] = torch.cat([r[i].reshape(-1).to(dev) for i in idx])
-        pd.all_sum_(buf)
-        for i, part in zip(idx, buf.split(sizes, dim=1)):
-            out[i] = part.reshape(dp, *rows[0][i].shape)
-    return out
+    stacks = exchange(dict(zip(mesh.owned_rows, rows)), mesh.shape["dp"],
+                      like, None, mesh.home)
+    return [s.to(d) for s, d in zip(stacks, dest)]
 
 
 def shard_batch(mesh: Mesh, batch):
@@ -271,12 +327,12 @@ def shard_dims(mesh: Mesh, params: dict) -> dict[str, int | None]:
 
 
 def shard_params(mesh: Mesh, params: dict) -> list[dict]:
-    """One dict per (dp, tp) rank of this process, row-major, on that
-    rank's device, each with buffers of its own: a leaf split by
-    `shard_dims` holds its tp rank's contiguous block along that axis
-    (the slice of JAX's `NamedSharding` on that device), any other leaf a
-    copy.  With tp = 1 that is one replica of `params` per local dp
-    rank."""
+    """One dict per (dp, tp) rank of this process (`mesh.local_ranks`),
+    row-major, on that rank's device, each with buffers of its own: a
+    leaf split by `shard_dims` holds its tp rank's contiguous block along
+    that axis (the slice of JAX's `NamedSharding` on that device), any
+    other leaf a copy.  With tp = 1 that is one replica of `params` per
+    local dp rank."""
     dims = shard_dims(mesh, params)
     tp = mesh.shape["tp"]
     ranks = mesh.rank_devices
@@ -291,36 +347,71 @@ def shard_params(mesh: Mesh, params: dict) -> list[dict]:
 
 
 def gather_leaf(key: str, shards: list, device) -> torch.Tensor:
-    """A split leaf's shards (in tp order) concatenated on `device` along
-    its tp axis."""
+    """A split leaf's shards (every one, in tp order) concatenated on
+    `device` along its tp axis."""
     return torch.cat([s.to(device) for s in shards],
                      tp_axis(key, shards[0].dim()))
+
+
+def shard_of(key: str, full: torch.Tensor, tp: int, t: int) -> torch.Tensor:
+    """Shard `t` of a split leaf cut from the full tensor, contiguous, as
+    `shard_params` holds it."""
+    return torch.chunk(full, tp, tp_axis(key, full.dim()))[t].contiguous()
+
+
+def gather_shards(mesh: Mesh, leaves: dict, device) -> dict:
+    """`leaves` with each split leaf (the list of this process's shards,
+    in `mesh.local_tps` order) made whole on `device`; other values as
+    they are.  Where some process lacks a tp column's shards, each shard
+    comes from the process of its column's rank in row 0 through one
+    `exchange` of the default group: every process calls it alike."""
+    split = {k: v for k, v in leaves.items() if isinstance(v, list)}
+    out = dict(leaves)
+    if mesh.tps_local:
+        out.update({k: gather_leaf(k, v, device) for k, v in split.items()})
+        return out
+    if not split:
+        return out
+    tp, me = mesh.shape["tp"], mesh.process_index
+    pos = {t: i for i, t in enumerate(mesh.local_tps)}
+    slots = {t: [v[pos[t]] for v in split.values()] for t in range(tp)
+             if int(mesh.process[0, t]) == me}
+    stacks = exchange(slots, tp, [v[0] for v in split.values()], None,
+                      mesh.home)
+    for (k, v), st in zip(split.items(), stacks):
+        out[k] = gather_leaf(k, [v[pos[t]] if t in pos else st[t]
+                                 for t in range(tp)], device)
+    return out
 
 
 def gather_params(mesh: Mesh, shards: list[dict],
                   dims: dict[str, int | None]) -> dict:
     """The inverse of `shard_params`: full tensors on `mesh.home`, a split
-    leaf the concatenation of the first local row's blocks in tp order,
-    any other leaf that row's copy.  `dims` is `shard_dims` of the full
-    parameters."""
-    row = shards[:mesh.shape["tp"]]
-    return {k: v if dims[k] is None
-            else gather_leaf(k, [s[k] for s in row], mesh.home)
-            for k, v in row[0].items()}
+    leaf the concatenation of its tp shards (this process's, and the
+    others' through `gather_shards`), any other leaf this process's
+    first copy.  `dims` is `shard_dims` of the full parameters."""
+    return gather_shards(mesh, {
+        k: v if dims[k] is None
+        else [shards[mesh.tp_slot(t)][k] for t in mesh.local_tps]
+        for k, v in shards[0].items()}, mesh.home)
 
 
 def rank_generators(generator: torch.Generator | None,
                     devices: Sequence[torch.device],
-                    ranks: Sequence[int] | None = None
+                    ranks: Sequence[int] | None = None,
+                    device: torch.device | None = None
                     ) -> list[torch.Generator]:
     """One generator per rank, on its device: seeded from one draw of
     `generator` plus the rank's global index (`ranks`, 0, 1, ... by
     default; the counterpart of JAX's `fold_in(key, axis_index)`), so the
     ranks draw different streams.  Every process draws the base from an
-    identically seeded `generator`, so its ranks' streams are the ones
-    the one-process mesh gives them.  The draw reads one number back to
-    the host."""
-    dev = generator.device if generator is not None else devices[0]
+    identically seeded `generator` (one that owns no row too), so its
+    ranks' streams are the ones the one-process mesh gives them.  The
+    draw, on `generator`'s device (the default generator of `device`, or
+    of `devices[0]`, where it is None), reads one number back to the
+    host."""
+    dev = (generator.device if generator is not None
+           else device if device is not None else devices[0])
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                              device=dev))
     ranks = range(len(devices)) if ranks is None else ranks

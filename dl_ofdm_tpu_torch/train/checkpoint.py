@@ -22,7 +22,12 @@ package writes its checkpoints with Orbax (`checkpoint.py:43-50`), which
 the port does not use and does not read; neither package reads the
 other's checkpoints.  A state of a tp mesh holds a split leaf's Adam
 moments as the list of its shards: `save` writes them gathered, in the
-same flax layout, and `restore` splits them again like the target's.
+same flax layout, and `restore` splits them again like the target's.  On
+a mesh over processes (`mesh=`) every process calls `save` and
+`save_resume`, the shards of every process are gathered
+(`parallel.mesh.gather_shards`) and process 0 alone writes the one file;
+`restore` and `restore_resume` give each process its own shards
+(`mesh.local_tps`).
 `token_name` is the reference's naming schema
 (`<token>_<n>mod_snr<s>_cp<b>[_Equalizer<opt>_<chan>]`,
 `dev/py/run_local_ofdm.py:77,104`).
@@ -34,7 +39,9 @@ import os
 import numpy as np
 import torch
 
-from dl_ofdm_tpu_torch.parallel.mesh import gather_leaf, tp_axis
+from dl_ofdm_tpu_torch.parallel import distributed as pd
+from dl_ofdm_tpu_torch.parallel.mesh import (gather_leaf, gather_shards,
+                                             shard_of, tp_axis)
 
 STATE_FILE = "state.npz"
 
@@ -142,11 +149,12 @@ def token_name(token: str, nbits: int, snr: float, cp: bool,
 
 # -- checkpoints: one directory, one named-key npz ----------------------------
 
-def _unflat(data, prefix: str, like: dict, path: str) -> dict:
+def _unflat(data, prefix: str, like: dict, path: str, mesh=None) -> dict:
     """The tensors under `prefix/` of `data`, keyed, ordered, typed and
     placed as `like` (where `like` holds a list of a split leaf's shards,
-    the tensor is split along its tp axis into shards placed as those);
-    raises if their names or shapes differ from it."""
+    the tensor is split along its tp axis into shards placed as those:
+    every shard, or this process's tp indices `mesh.local_tps` on a
+    mesh); raises if their names or shapes differ from it."""
     tree: dict = {}
     start = prefix + "/"
     for key in data.files:
@@ -163,18 +171,19 @@ def _unflat(data, prefix: str, like: dict, path: str) -> dict:
             "the target does not, or lacks them")
     out = {}
     for k, v in like.items():
-        shards = v if isinstance(v, list) else [v]
-        axis = tp_axis(k, v[0].dim()) if isinstance(v, list) else 0
-        want = list(shards[0].shape)
+        want = list((v[0] if isinstance(v, list) else v).shape)
         if isinstance(v, list):
-            want[axis] = sum(t.shape[axis] for t in shards)
+            tp = len(v) if mesh is None else mesh.shape["tp"]
+            want[tp_axis(k, len(want))] *= tp
         if list(got[k].shape) != want:
             raise ValueError(f"{path}: '{prefix}' {k} has shape "
                              f"{tuple(got[k].shape)}, the target "
                              f"{tuple(want)}")
         if isinstance(v, list):
-            out[k] = [p.to(device=t.device, dtype=t.dtype).contiguous()
-                      for p, t in zip(torch.chunk(got[k], len(v), axis), v)]
+            tps = range(len(v)) if mesh is None else mesh.local_tps
+            out[k] = [shard_of(k, got[k], tp, t).to(device=s.device,
+                                                    dtype=s.dtype)
+                      for t, s in zip(tps, v)]
         else:
             out[k] = got[k].to(device=v.device, dtype=v.dtype)
     return out
@@ -191,38 +200,62 @@ def _write_npz(path: str, arrays: dict) -> str:
     return path
 
 
-def _state_arrays(state) -> dict:
+def _state_arrays(state, mesh=None) -> dict | None:
+    """The state's arrays in the process that writes (None in the others,
+    which hand it their shards of the moments)."""
     opt = state.opt_state
+    mu, nu = opt["mu"], opt["nu"]
+    if mesh is not None:
+        mu, nu = (gather_shards(mesh, m, "cpu") for m in (mu, nu))
+    if not _writes(mesh):
+        return None
     return {"step": np.int64(state.step), "opt/count": np.int64(opt["count"]),
-            **_flat("params", state.params), **_flat("opt/mu", opt["mu"]),
-            **_flat("opt/nu", opt["nu"])}
+            **_flat("params", state.params), **_flat("opt/mu", mu),
+            **_flat("opt/nu", nu)}
 
 
-def save(path: str, state) -> str:
+def _writes(mesh) -> bool:
+    """Whether this process writes: always, but on a mesh over processes,
+    where process 0 alone does."""
+    return mesh is None or not mesh.multiprocess or pd.is_main_process()
+
+
+def _written(mesh) -> None:
+    """On a mesh over processes, wait until process 0 has written."""
+    if mesh is not None and mesh.multiprocess:
+        pd.barrier(mesh.home)
+
+
+def save(path: str, state, mesh=None) -> str:
     """Write a `TrainState` (params, Adam's count and moments, step) to the
-    directory `path`.  Returns its absolute path."""
-    return _write_npz(path, _state_arrays(state))
+    directory `path`.  On a mesh over processes every process calls it
+    and process 0 writes.  Returns its absolute path."""
+    arrays = _state_arrays(state, mesh)
+    if arrays is not None:
+        _write_npz(path, arrays)
+    _written(mesh)
+    return os.path.abspath(path)
 
 
-def _restore_state(data, target, path: str):
+def _restore_state(data, target, path: str, mesh=None):
     from dl_ofdm_tpu_torch.train.loop import TrainState
     opt = target.opt_state
     return TrainState(
         _unflat(data, "params", target.params, path),
         {"count": int(data["opt/count"]),
-         "mu": _unflat(data, "opt/mu", opt["mu"], path),
-         "nu": _unflat(data, "opt/nu", opt["nu"], path)},
+         "mu": _unflat(data, "opt/mu", opt["mu"], path, mesh),
+         "nu": _unflat(data, "opt/nu", opt["nu"], path, mesh)},
         int(data["step"]))
 
 
-def restore(path: str, target):
+def restore(path: str, target, mesh=None):
     """The `TrainState` saved at `path`, its tensors keyed, ordered, typed
-    and placed as those of `target` (an `init_state()` result); raises if
-    the names or shapes differ.  A mesh's replicas are the caller's to
-    rebuild."""
+    and placed as those of `target` (an `init_state()` result; on a mesh
+    over processes, this process's, with `mesh`); raises if the names or
+    shapes differ.  A mesh's replicas are the caller's to rebuild."""
     path = os.path.abspath(path)
     with np.load(os.path.join(path, STATE_FILE)) as data:
-        return _restore_state(data, target, path)
+        return _restore_state(data, target, path, mesh)
 
 
 # -- resume payloads (state + generator + cursors) ------------------------------
@@ -242,16 +275,22 @@ def _sig_from_array(arr) -> str | None:
 
 def save_resume(path: str, *, state, generator: torch.Generator, epoch: int,
                 best_loss: float, best_epoch: int, best_params: dict,
-                batch_frames: int, config_sig: str | None = None) -> str:
+                batch_frames: int, config_sig: str | None = None,
+                mesh=None) -> str:
     """Write a full mid-run resume payload to the directory `path`: the
     state, `generator`'s state, the epoch and best cursors, the best params
     (not written again where they are the state's own tensors), the batch
     size and `config_sig`, embedded so that it is atomic with the payload.
     A sidecar `<path>.sig` copy is written after it, for inspection
-    (`checkpoint.py:143-165`)."""
+    (`checkpoint.py:143-165`).  On a mesh over processes every process
+    calls it and process 0 writes."""
     same = best_params.keys() == state.params.keys() and all(
         best_params[k] is v for k, v in state.params.items())
-    arrays = _state_arrays(state)
+    arrays = _state_arrays(state, mesh)
+    out = os.path.abspath(path)
+    if arrays is None:
+        _written(mesh)
+        return out
     arrays.update({
         "generator": generator.get_state().numpy(),
         "config_sig": _sig_to_array(config_sig),
@@ -262,13 +301,14 @@ def save_resume(path: str, *, state, generator: torch.Generator, epoch: int,
         "best_is_state": np.bool_(same)})
     if not same:
         arrays.update(_flat("best", best_params))
-    out = _write_npz(path, arrays)
+    _write_npz(path, arrays)
     if config_sig is not None:
         sig_path = out + ".sig"
         tmp = sig_path + ".tmp"
         with open(tmp, "w") as f:
             f.write(config_sig)
         os.replace(tmp, sig_path)
+    _written(mesh)
     return out
 
 
@@ -290,15 +330,15 @@ def resume_sig(path: str) -> str | None:
         return f.read().strip()
 
 
-def restore_resume(path: str, state_target) -> dict:
+def restore_resume(path: str, state_target, mesh=None) -> dict:
     """A `save_resume` payload: {"state", "generator_state" (a CPU uint8
     tensor for `Generator.set_state`), "best_params", "config_sig" (the
     embedded one, else the sidecar's, else None), "cursor": {"epoch",
     "best_epoch", "best_loss", "batch_frames"}}; tensors as `restore`
-    places them."""
+    places them (this process's shards with `mesh`)."""
     path = os.path.abspath(path)
     with np.load(os.path.join(path, STATE_FILE)) as data:
-        state = _restore_state(data, state_target, path)
+        state = _restore_state(data, state_target, path, mesh)
         best = (state.params if bool(data["best_is_state"])
                 else _unflat(data, "best", state_target.params, path))
         return {

@@ -24,8 +24,9 @@ the dp rows on the plain data plane (`Trainer._synth_mesh` with the true
 channel, `equalizer_loop.py:159-160`) and, with tp > 1, tensor parallel
 over each row's tp ranks: the equalizer's `Dense_interp*` and
 `Dense_block*` and the frozen receiver's `fft_like` and `Dense_extract`
-split by JAX's rules (`parallel/tp.py`), Adam on the `Equalizer` keys'
-shards.  `fit(ckpt_dir=)` resumes as
+split by JAX's rules (`parallel/tp.py`; a row's tp ranks may span
+processes), Adam on the `Equalizer` keys' shards (each process its own)
+and the frozen receiver taking no gradient.  `fit(ckpt_dir=)` resumes as
 `Trainer.fit` does, its signature covering `freeze_rx` and
 `fused_curriculum` (`equalizer_loop.py:192-236`).
 """

@@ -45,18 +45,23 @@ tp > 1 the leaves that JAX's rules split (`parallel.mesh.shard_dims`) live
 as shards on the tp ranks of every row (`TrainState.replicas`); a row's
 forward pass runs on its tp ranks (`parallel/tp.py`), each shard's
 gradient stays on its rank, the L2 term sums the shards' squares, and
-Adam runs on the shards (a split leaf's moments are the list of its
-shards, on dp row 0's tp ranks).  `TrainState.params` holds the gathered
-(full) parameters after every step, for evaluation, sweeps and
-checkpoints.
+Adam runs on the shards (a split leaf's moments are the list of this
+process's shards, one a tp index it holds, on its first rank with that
+index).  `TrainState.params` holds the gathered (full) parameters after
+every step, for evaluation, sweeps and checkpoints (over processes the
+gather is an `all_reduce` of the split leaves each step).
 
 On a mesh over a group of processes (`parallel/distributed.py`), each
-process draws, runs and differentiates only its own dp rows; the rows'
-noise powers, CE terms, confusion counts, further metrics and gradients
-are combined over the processes by `parallel.mesh.gather_rows` and summed
-in row order, so the L2 term sees the global BER and every process runs
-Adam on the same gradients (replicated Adam, as JAX's step does), with
-the one-process mesh's numbers.  `fit` takes every decision on process
+process runs and differentiates only the dp rows it holds a rank of; a
+row's owner draws its frames (and broadcasts them where the row spans
+processes: its tp ranks then meet through `parallel/tp.py`'s autograd
+functions); the rows' noise powers, CE terms, confusion counts, further
+metrics and replicated leaves' gradients are combined over the processes
+by `parallel.mesh.gather_rows` and summed in row order, a split leaf's
+shard gradients over the processes of its tp column, so the L2 term sees
+the global BER and every process runs Adam on the same gradients (on the
+replicated leaves and on its own shards), with the one-process mesh's
+numbers.  `fit` takes every decision on process
 0's numbers (`distributed.agree`), only process 0 logs and writes resume
 payloads, and every process restores them (`ckpt_dir` must be a
 directory every process sees).
@@ -88,10 +93,10 @@ from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
                                                fused_synthesize)
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
 from dl_ofdm_tpu_torch.parallel import distributed as pd
-from dl_ofdm_tpu_torch.parallel.mesh import (gather_leaf, gather_rows,
-                                             module_replicas,
+from dl_ofdm_tpu_torch.parallel.mesh import (exchange, gather_rows,
+                                             gather_shards, module_replicas,
                                              rank_generators, shard_dims,
-                                             shard_params)
+                                             shard_of, shard_params)
 from dl_ofdm_tpu_torch.parallel.tp import TensorParallel
 from dl_ofdm_tpu_torch.train import checkpoint as ckpt
 from dl_ofdm_tpu_torch.train import metrics as M
@@ -160,11 +165,14 @@ class Adam:
                 "nu": unflatten_leaves(spec, [torch.zeros_like(v)
                                               for v in flat])}
 
-    def update(self, grads: dict, state: dict):
+    def update(self, grads: dict, state: dict, sq: list | None = None):
         """(updates, new state); add the updates to the parameters.
 
         optax's operations in optax's order, each over all tensors at once
-        (`torch._foreach_*`: one launch per operation, not per tensor)."""
+        (`torch._foreach_*`: one launch per operation, not per tensor).
+        `sq`: the sums of squares of every tensor of the whole gradient,
+        in order, for the global norm, where `grads` holds only some
+        shards of a split leaf (a mesh over processes)."""
         spec, g = flatten_leaves(grads)
         moments = {m: flatten_leaves({k: state[m][k] for k in grads})[1]
                    for m in ("mu", "nu")}
@@ -172,8 +180,8 @@ class Adam:
         if clip > 0:
             # optax's clip_by_global_norm: g if ||g|| < c else (g / ||g||) c
             # (no epsilon, unlike torch's clip_grad_norm_)
-            norm = torch.sqrt(sum(torch.sum(t * t).to(g[0].device)
-                                  for t in g))
+            terms = (torch.sum(t * t) for t in g) if sq is None else sq
+            norm = torch.sqrt(sum(v.to(g[0].device) for v in terms))
             g = [torch.where(n < clip, t, (t / n) * clip)
                  for t, n in ((t, norm.to(t.device)) for t in g)]
         count = state["count"] + 1
@@ -209,6 +217,14 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = prev
+
+
+def _row_sums(stacks: list) -> list:
+    """Each [dp, ...] stack summed over its rows in row order."""
+    out = [s[0] for s in stacks]
+    for r in range(1, stacks[0].shape[0] if stacks else 0):
+        out = torch._foreach_add(out, [s[r] for s in stacks])
+    return out
 
 
 def first_output(out):
@@ -329,17 +345,35 @@ class Trainer:
     def _leaves(self, params: dict, replicas: list[dict] | None,
                 keys) -> dict:
         """The optimizer's view of `keys`: the full tensor of a replicated
-        leaf (from `params`), the list of dp row 0's shards of a split one
-        (from `replicas`)."""
-        tp = 1 if self.mesh is None else self.mesh.shape["tp"]
+        leaf (from `params`), the list of this process's shards of a split
+        one, one a tp index it holds (`mesh.local_tps`; every index in one
+        process), from its first rank with that index (`replicas`)."""
+        mesh = self.mesh
         return {k: params[k] if self._dims.get(k) is None
-                else [replicas[t][k] for t in range(tp)] for k in keys}
+                else [replicas[mesh.tp_slot(t)][k] for t in mesh.local_tps]
+                for k in keys}
 
     def _gathered(self, leaves: dict) -> dict:
-        """`leaves` with each split leaf's shards concatenated on rank 0's
-        device."""
-        return {k: gather_leaf(k, v, self.device) if isinstance(v, list)
-                else v for k, v in leaves.items()}
+        """`leaves` with each split leaf's shards made whole on the home
+        device (from the other processes too: collective on a mesh over
+        processes)."""
+        if self.mesh is None:
+            return dict(leaves)
+        return gather_shards(self.mesh, leaves, self.device)
+
+    def _l2_view(self, leaves: dict, full: dict) -> dict:
+        """`leaves` with each split leaf's list holding every tp shard, in
+        tp order: this process's as they are, the others cut from the
+        gathered parameters `full` (`shard_of`: the same tensors, so the
+        L2 term's sums of squares are the one-process mesh's)."""
+        mesh = self.mesh
+        if mesh is None or mesh.tps_local:
+            return leaves
+        tp, pos = mesh.shape["tp"], {t: i for i, t in
+                                     enumerate(mesh.local_tps)}
+        return {k: [v[pos[t]] if t in pos else shard_of(k, full[k], tp, t)
+                    for t in range(tp)] if isinstance(v, list) else v
+                for k, v in leaves.items()}
 
     def _new_state(self, params: dict, keys) -> TrainState:
         """`params` with a zero Adam state over `keys` (on the shards); on a
@@ -429,25 +463,41 @@ class Trainer:
     # -- the mesh (dp) ---------------------------------------------------------
     def _synth_mesh(self, generator: torch.Generator, snr_db: torch.Tensor,
                     want_h: bool = False):
-        """The data plane over this process's dp rows (`loop.py:206-228`):
-        row r draws `batch_frames / dp` frames at its slice of `snr_db` on
-        its device from its own generator (`rank_generators`: one draw of
-        `generator` plus r, for JAX's `fold_in(key, axis_index)`) and
-        normalizes them with its own moments.  Returns the local rows'
-        lists (bits, rx_in, h_freq or None without `want_h`) and the noise
-        power averaged over every row of the mesh."""
+        """The data plane over the dp rows this process holds a rank of
+        (`loop.py:206-228`): row r draws `batch_frames / dp` frames at its
+        slice of `snr_db` on its device from its own generator
+        (`rank_generators`: one draw of `generator` plus r, for JAX's
+        `fold_in(key, axis_index)`) and normalizes them with its own
+        moments.  A row's owner draws it; where the row spans processes
+        the owner broadcasts its bits, input (and true channel) to the
+        row's other processes (one draw, the noise power counted once).
+        Returns the local rows' lists (bits, rx_in, h_freq or None without
+        `want_h`) and the noise power averaged over every row of the
+        mesh."""
         mesh = self.mesh
-        devs, rows = mesh.local_dp_devices, mesh.local_rows
+        rows = mesh.owned_rows
+        devs = [mesh.row_device(r) for r in rows]
         snrs = torch.chunk(snr_db, mesh.shape["dp"])
         local = self.batch_frames // mesh.shape["dp"]
-        shards = [self.synthesize(local, snrs[r].to(dev), gen, device=dev)
-                  for dev, gen, r in zip(
-                      devs, rank_generators(generator, devs, rows), rows)]
-        bits, rx_in, h_freq, noise_pwr, _ = zip(*shards)
-        noise_pwr = gather_rows(mesh, [[p] for p in noise_pwr],
-                                self.device)[0].mean()
-        return (list(bits), list(rx_in), list(h_freq) if want_h else None,
-                noise_pwr)
+        drawn = {r: self.synthesize(local, snrs[r].to(dev), gen, device=dev)
+                 for dev, gen, r in zip(devs, rank_generators(
+                     generator, devs, rows, self.device), rows)}
+        noise_pwr = gather_rows(
+            mesh, [[drawn[r][3]] for r in rows], self.device,
+            like=[torch.zeros((), device=self.device)])[0].mean()
+        out = []
+        for r in mesh.local_rows:
+            row = drawn.get(r)
+            if row is not None:
+                row = [row[0], row[1]] + ([row[2]] if want_h else [])
+            if mesh.row_groups[r] is not None:
+                row = pd.broadcast_tensors(row, mesh.owner(r),
+                                           mesh.row_groups[r], mesh.home)
+                row = [t.to(mesh.row_device(r)) for t in row]
+            out.append(row)
+        bits, rx_in = [o[0] for o in out], [o[1] for o in out]
+        h_freq = [o[2] for o in out] if want_h else None
+        return bits, rx_in, h_freq, noise_pwr
 
     def _grad_keys(self, params: dict) -> list[str]:
         """The parameters that take gradients: all of them."""
@@ -456,21 +506,25 @@ class Trainer:
     def _mesh_step(self, state: TrainState, bits: list, rx_in: list,
                    extras: list, noise_pwr: torch.Tensor,
                    return_grads: bool = False):
-        """One mesh step on the local rows' shards of the frames
-        (`extras[i]`: further arguments of local row i's `_rank_terms`;
-        every row's shard has as many frames).
+        """One mesh step on the shards of the frames of the rows this
+        process holds a rank of (`mesh.local_rows`; `extras[i]`: further
+        arguments of local row i's `_rank_terms`; every row's shard has as
+        many frames; every process of a row holds the row's shard).
 
         Every local dp row runs the forward pass on its frames with its
-        ranks' parameters (tensor parallel over its tp ranks); the
-        confusion counts are summed over every row of the mesh first, so
-        the L2 term takes the global BER as JAX's global-batch loss does;
-        each row's backward pass runs on its CE weighted by its share of
-        the frames; the rows' gradients are summed in row order
-        (`gather_rows`: across processes too), a replicated leaf's on the
-        home device, a split leaf's shard t on the first local row's tp
-        rank t; the L2 term's gradient is added once, Adam runs once a
-        process on the same gradients (on the shards), and every local
-        rank receives its part of the new parameters."""
+        ranks' parameters (tensor parallel over its tp ranks, across the
+        row's processes where it spans them); the confusion counts are
+        summed over every row of the mesh first, so the L2 term takes the
+        global BER as JAX's global-batch loss does; each row's backward
+        pass runs on its CE weighted by its share of the frames.  The rows'
+        gradients are summed in row order: a replicated leaf's (the same
+        in every process of a row) from each row's owner (`gather_rows`),
+        on the home device; shard t of a split leaf's over the processes
+        that hold tp index t (the column's group), on this process's first
+        rank with that index.  The L2 term's gradient is added once, Adam
+        runs in every process on the replicated leaves and on its own
+        shards, with the same gradients, and every local rank receives its
+        part of the new parameters."""
         mesh, dev0 = self.mesh, self.device
         tp, dp = mesh.shape["tp"], mesh.shape["dp"]
         keys = self._grad_keys(state.params)
@@ -480,46 +534,77 @@ class Trainer:
                              f"({len(mesh.local_rows)}), got "
                              f"{[b.shape[0] for b in bits]}")
         total = sizes.pop() * dp
+        rep_keys = [k for k in keys if self._dims[k] is None]
+        split_keys = [k for k in keys if self._dims[k] is not None]
         ranks = []
-        for d, (b, x, extra) in enumerate(zip(bits, rx_in, extras)):
-            row = [dict(r) for r in state.replicas[d * tp:(d + 1) * tp]]
-            leaves = {}
+        for row_id, b, x, extra in zip(mesh.local_rows, bits, rx_in, extras):
+            slots = mesh.row_slots(row_id)
+            row = [dict(state.replicas[i]) for i in slots]
             for k in keys:
-                split = self._dims[k] is not None
-                for t in range(tp if split else 1):
-                    row[t][k] = row[t][k].detach().requires_grad_()
-                leaves[k] = [r[k] for r in row] if split else row[0][k]
-            ctx = (TensorParallel(row, mesh.tp_devices(mesh.local_rows[d]),
-                                  self._dims) if self._tp else None)
+                for r in row[:len(row) if self._dims[k] is not None else 1]:
+                    r[k] = r[k].detach().requires_grad_()
+            leaves = [row[0][k] for k in rep_keys] + [
+                r[k] for k in split_keys for r in row]
+            ctx = (TensorParallel.for_row(mesh, row_id, row, self._dims)
+                   if self._tp else None)
             ce, conf, more = self._rank_terms(
                 row[0], b, x, model=self._rank_models[x.device], tp=ctx,
                 **extra)
-            ranks.append((flatten_leaves(leaves)[1],
-                          ce * (b.shape[0] / total), conf, more))
+            ranks.append((row_id, leaves, ce * (b.shape[0] / total), conf,
+                          more))
         # every row's CE term, counts and further metrics, in row order
-        more = list(ranks[0][3])
+        more = list(ranks[0][4])
+        share = bits[0].shape[0] / total
         terms = gather_rows(mesh, [
-            [w.detach(), c] + [m[k].detach() * (b.shape[0] / total)
-                               for k in more]
-            for (_, w, c, m), b in zip(ranks, bits)], dev0)
+            [w.detach(), c] + [m[k].detach() * share for k in more]
+            for row_id, _, w, c, m in ranks if row_id in mesh.owned_rows],
+            dev0, like=[ranks[0][2].detach(), ranks[0][3]]
+            + [ranks[0][4][k].detach() for k in more])
         ce = sum(terms[0][r] for r in range(dp))
         conf = sum(terms[1][r] for r in range(dp))
-        # the parameter term, once, on dp row 0's leaves (the CE is
-        # detached)
+        # the parameter term, once, on this process's leaves (the CE is
+        # detached); the L2 term sees every shard
         params = self._leaves(state.params, state.replicas, state.params)
         spec, train = flatten_leaves({k: params[k] for k in keys})
         train = [t.detach().requires_grad_() for t in train]
         params.update(unflatten_leaves(spec, train))
-        loss, aux = self._global_terms(params, ce, conf)
-        stacks = gather_rows(mesh, [
-            [g_.to(t.device) for g_, t in zip(torch.autograd.grad(
-                w, leaves, materialize_grads=True), train)]
-            for leaves, w, _, _ in ranks])
-        grads = [s[0] for s in stacks]
-        for r in range(1, dp):
-            grads = torch._foreach_add(grads, [s[r] for s in stacks])
+        loss, aux = self._global_terms(self._l2_view(params, state.params),
+                                       ce, conf)
+        row_grads = [torch.autograd.grad(w, leaves, materialize_grads=True)
+                     for _, leaves, w, _, _ in ranks]
+        # replicated leaves: each row's owner's gradients, on the home
+        # device, summed in row order
+        n_rep = len(rep_keys)
+        rep = gather_rows(mesh, [
+            [g.to(dev0) for g in grads[:n_rep]]
+            for (row_id, *_), grads in zip(ranks, row_grads)
+            if row_id in mesh.owned_rows], None,
+            like=[g.to(dev0) for g in row_grads[0][:n_rep]])
+        summed = dict(zip(rep_keys, _row_sums(rep)))
+        # shard t of each split leaf: summed over the dp rows in row order
+        # by the processes that hold tp index t (a row's gradients hold
+        # each split key's local shards in tp order)
+        for t in mesh.local_tps:
+            slots = {}
+            for (row_id, *_), grads in zip(ranks, row_grads):
+                ts = [mesh.local_ranks[i] % tp for i in mesh.row_slots(row_id)]
+                if t in ts:
+                    slots[row_id] = grads[n_rep + ts.index(t)::len(ts)]
+            dest = mesh.rank_devices[mesh.local_ranks[mesh.tp_slot(t)]]
+            group = mesh.col_groups[t]
+            stacks = ([torch.stack([g.to(dest) for g in gs]) for gs in
+                       zip(*(slots[r] for r in range(dp)))] if group is None
+                      else [s.to(dest) for s in exchange(
+                          slots, dp, next(iter(slots.values())), group,
+                          mesh.home)])
+            summed.update(zip([(k, t) for k in split_keys],
+                              _row_sums(stacks)))
+        flat = []
+        for k, n in spec:
+            flat += ([summed[k]] if n is None
+                     else [summed[(k, t)] for t in mesh.local_tps])
         grads = unflatten_leaves(spec, torch._foreach_add(
-            grads, torch.autograd.grad(loss, train, materialize_grads=True)))
+            flat, torch.autograd.grad(loss, train, materialize_grads=True)))
         aux = {k: v.detach() for k, v in aux.items()}
         for i, k in enumerate(more):
             aux[k] = sum(terms[2 + i][r] for r in range(dp))
@@ -533,7 +618,17 @@ class Trainer:
         """The optimizer on the parameters that `grads` holds (a split
         leaf's shards where its gradient is their list); any other
         parameter keeps its tensor."""
-        updates, opt_state = self.optimizer.update(grads, state.opt_state)
+        sq = None
+        if (self.tc.grad_clip > 0 and self.mesh is not None
+                and not self.mesh.tps_local):
+            # the global norm over every shard, as the one-process mesh
+            # takes it
+            full, tp = self._gathered(grads), self.mesh.shape["tp"]
+            sq = [torch.sum(s * s) for k, v in grads.items()
+                  for s in ([shard_of(k, full[k], tp, t) for t in range(tp)]
+                            if isinstance(v, list) else [v])]
+        updates, opt_state = self.optimizer.update(grads, state.opt_state,
+                                                   sq)
         spec, upd = flatten_leaves(updates)
         _, old = flatten_leaves(self._leaves(state.params, state.replicas,
                                              updates))
@@ -667,7 +762,7 @@ class Trainer:
                                "directory every process sees")
         if not found:
             return state, 0, math.inf, 0, state.params, False
-        payload = ckpt.restore_resume(rp, state)
+        payload = ckpt.restore_resume(rp, state, self.mesh)
         saved = payload["config_sig"]
         if saved is not None and saved != self._config_sig():
             raise RuntimeError(
@@ -686,16 +781,16 @@ class Trainer:
 
     def _save_resume(self, ckpt_dir, state, generator, epoch, best_loss,
                      best_epoch, best_params):
-        """Process 0 writes the payload; the others wait until it has."""
-        if pd.is_main_process():
+        """Process 0 writes the payload; the others wait until it has (on
+        a mesh over processes they hand it their shards of the Adam
+        moments first)."""
+        if self._multiprocess() or pd.is_main_process():
             ckpt.save_resume(os.path.join(ckpt_dir, "resume"), state=state,
                              generator=generator, epoch=epoch,
                              best_loss=best_loss, best_epoch=best_epoch,
                              best_params=best_params,
                              batch_frames=self.batch_frames,
-                             config_sig=self._config_sig())
-        if self._multiprocess():
-            pd.barrier(self.device)
+                             config_sig=self._config_sig(), mesh=self.mesh)
 
     def _main_log(self, log_fn):
         """`log_fn` in process 0, a no-op in the others."""

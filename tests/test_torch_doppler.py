@@ -119,3 +119,41 @@ def test_mobile_channel_draws_from_generator():
     assert mask.tolist() == [i % 3 == 0 for i in range(12)]
     assert bool((spread[torch.from_numpy(mask)] > 1e-3).all())
     assert bool((spread[torch.from_numpy(~mask)] == 0).all())
+
+
+def test_partitioned_doppler_path_bit_equal_to_general_path(monkeypatch):
+    """`_partition_doppler = True` on JAX's case
+    (`tests/test_channel.py:264-290`: 12 x 7 x 80, mixRayleigh, mobile,
+    mix): the static FIR runs on the 8 static rows only and `y` and
+    `h_freq` are bit-equal to the general path's, and within 1e-5 of
+    JAX's partitioned path on the same draws; 13 frames fall back to the
+    general path (the static FIR on all 13 rows), bit-equal too."""
+    rows = []
+    same_iq = tfir.fir_same_iq
+    monkeypatch.setattr(tfir, "fir_same_iq",
+                        lambda x, *a: rows.append(x.shape[0])
+                        or same_iq(x, *a))
+    jch = JChannel("mixRayleigh", nfft=64, mobile=True, mix=True)
+    tch = TChannel("mixRayleigh", nfft=64, mobile=True, mix=True)
+    assert not tch._partition_doppler
+    key = jax.random.PRNGKey(3)
+    for b, static_rows in ((12, 8), (13, 13)):
+        tx = np.array(jax.random.normal(jax.random.PRNGKey(4),
+                                        (b, 7, 80, 2), jnp.float32))
+        z, th = _jax_draws(jch, key, b)
+        draws = dict(zck=torch.from_numpy(z),
+                     theta=tuple(torch.from_numpy(t) for t in th))
+        outs = {}
+        for part in (True, False):
+            tch._partition_doppler = part
+            rows.clear()
+            outs[part] = tch(torch.from_numpy(tx), **draws)
+            assert rows == [static_rows if part else b]
+        assert torch.equal(outs[True].y, outs[False].y)
+        assert torch.equal(outs[True].h_freq, outs[False].h_freq)
+        jch._partition_doppler = True
+        want = jch(key, jnp.asarray(tx))
+        np.testing.assert_allclose(outs[True].y.numpy(), np.asarray(want.y),
+                                   atol=1e-5)
+        np.testing.assert_allclose(outs[True].h_freq.numpy(),
+                                   np.asarray(want.h_freq), atol=1e-5)

@@ -1,0 +1,11 @@
+"""The card's idle time while the host was in the data plane (`ofdm.data.*`:
+`Trainer.synthesize`'s TX, channel, AWGN and normalization, the fused
+synthesize kernel and its moments), as a share of the traced train window:
+the gaps between the card's operations inside the layer's spans, each
+moment charged to the innermost `ofdm.` span (`benchmark/spans.py`).  None
+where the program records no spans."""
+from benchmark import spans
+
+
+def read(run):
+    return spans.idle_pct(run, "data", "steps")

@@ -67,6 +67,7 @@ from dl_ofdm_tpu_torch.parallel.mesh import (Mesh, gather_rows,
                                              rank_generators)
 from dl_ofdm_tpu_torch.train import metrics as M
 from dl_ofdm_tpu_torch.train.loop import first_output
+from dl_ofdm_tpu_torch.utils.observability import span
 
 CROSS_TEST_CHANNELS = ("ETU", "EVA", "EPA", "Flat", "Custom")
 
@@ -115,11 +116,12 @@ def eval_batch(trainer, snr_vec: torch.Tensor, onehot: torch.Tensor,
     bits, rx_in, _, _, _ = trainer.synthesize(
         snr_vec.shape[0], snr_vec, generator, norm_groups=onehot, bits=bits,
         unit_noise=unit_noise, device=snr_vec.device)
-    logits = first_output((model or trainer.model)(rx_in))
-    pred = M.bit_predictions(logits)
-    err_per_frame = (pred != bits).sum(dim=(1, 2))
-    errors = (err_per_frame[:, None] * onehot.to(torch.int64)).sum(dim=0)
-    ce = M.frame_cross_entropy(logits, bits) @ onehot
+    with span("model.forward"):
+        logits = first_output((model or trainer.model)(rx_in))
+        pred = M.bit_predictions(logits)
+        err_per_frame = (pred != bits).sum(dim=(1, 2))
+        errors = (err_per_frame[:, None] * onehot.to(torch.int64)).sum(dim=0)
+        ce = M.frame_cross_entropy(logits, bits) @ onehot
     return errors, ce
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from dl_ofdm_tpu_torch import resolve_device
+from dl_ofdm_tpu_torch.utils.observability import span
 
 # a process that dies turns its partners' next collective into an error
 # after this long, not a hang
@@ -256,43 +257,46 @@ def broadcast_tensors(tensors: list | None, src: int, group,
     not know their shapes) in every process of `group`, on `device`: a
     header of their dtypes and shapes, then their bytes in one buffer
     (each tensor's on an 8-byte boundary), two `broadcast`s.  Exact."""
-    head = torch.zeros(_HEADER, dtype=torch.int64, device=device)
-    if tensors is not None:
-        enc = [len(tensors)]
-        for t in tensors:
-            enc += [_DTYPES.index(t.dtype), t.dim(), *t.shape]
-        if len(enc) > _HEADER:
-            raise ValueError(f"{len(tensors)} tensors of ranks "
-                             f"{[t.dim() for t in tensors]}: a header of "
-                             f"{len(enc)} numbers, more than {_HEADER}")
-        head[:len(enc)] = torch.tensor(enc)
-    dist.broadcast(head, src, group=group)
-    enc, i, specs = head.tolist(), 1, []
-    for _ in range(enc[0]):
-        dtype, ndim = _DTYPES[enc[i]], enc[i + 1]
-        specs.append((dtype, tuple(enc[i + 2:i + 2 + ndim])))
-        i += 2 + ndim
-    sizes = [math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-             for dtype, shape in specs]
-    offs = [0]
-    for n in sizes:
-        offs.append(offs[-1] + -(-n // 8) * 8)
-    buf = torch.zeros(offs[-1], dtype=torch.uint8, device=device)
-    if tensors is not None:
-        for t, o, n in zip(tensors, offs, sizes):
-            buf[o:o + n] = t.detach().contiguous().reshape(-1).view(
-                torch.uint8).to(device)
-    dist.broadcast(buf, src, group=group)
-    return [buf[o:o + n].view(dtype).reshape(shape)
-            for (dtype, shape), o, n in zip(specs, offs, sizes)]
+    with span("comm.broadcast"):
+        head = torch.zeros(_HEADER, dtype=torch.int64, device=device)
+        if tensors is not None:
+            enc = [len(tensors)]
+            for t in tensors:
+                enc += [_DTYPES.index(t.dtype), t.dim(), *t.shape]
+            if len(enc) > _HEADER:
+                raise ValueError(f"{len(tensors)} tensors of ranks "
+                                 f"{[t.dim() for t in tensors]}: a header of "
+                                 f"{len(enc)} numbers, more than {_HEADER}")
+            head[:len(enc)] = torch.tensor(enc)
+        dist.broadcast(head, src, group=group)
+        enc, i, specs = head.tolist(), 1, []
+        for _ in range(enc[0]):
+            dtype, ndim = _DTYPES[enc[i]], enc[i + 1]
+            specs.append((dtype, tuple(enc[i + 2:i + 2 + ndim])))
+            i += 2 + ndim
+        sizes = [math.prod(shape)
+                 * torch.empty((), dtype=dtype).element_size()
+                 for dtype, shape in specs]
+        offs = [0]
+        for n in sizes:
+            offs.append(offs[-1] + -(-n // 8) * 8)
+        buf = torch.zeros(offs[-1], dtype=torch.uint8, device=device)
+        if tensors is not None:
+            for t, o, n in zip(tensors, offs, sizes):
+                buf[o:o + n] = t.detach().contiguous().reshape(-1).view(
+                    torch.uint8).to(device)
+        dist.broadcast(buf, src, group=group)
+        return [buf[o:o + n].view(dtype).reshape(shape)
+                for (dtype, shape), o, n in zip(specs, offs, sizes)]
 
 
 def agree(values, device) -> list[float]:
     """Process 0's float64 `values` in every process: the numbers a
     decision is taken on, so that no process branches alone."""
-    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                     device=device)
-    return broadcast_(t).tolist()
+    with span("comm.agree"):
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=device)
+        return broadcast_(t).tolist()
 
 
 def all_true(flag: bool, device) -> bool:

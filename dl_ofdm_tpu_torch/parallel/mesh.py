@@ -43,6 +43,7 @@ import torch
 
 from dl_ofdm_tpu_torch import resolve_device
 from dl_ofdm_tpu_torch.parallel import distributed as pd
+from dl_ofdm_tpu_torch.utils.observability import span
 
 def _device(d) -> torch.device:
     """A mesh entry as a `torch.device` with its index: 'cuda' is the
@@ -214,15 +215,16 @@ def exchange(slots: dict, n: int, like: list, group,
     by_dtype: dict = {}
     for i, t in enumerate(like):
         by_dtype.setdefault(t.dtype, []).append(i)
-    for dtype, idx in by_dtype.items():
-        sizes = [like[i].numel() for i in idx]
-        buf = torch.zeros(n, sum(sizes), dtype=dtype, device=device)
-        for s, ts in slots.items():
-            buf[s] = torch.cat([ts[i].detach().reshape(-1).to(device)
-                                for i in idx])
-        pd.all_sum_(buf, group)
-        for i, part in zip(idx, buf.split(sizes, dim=1)):
-            out[i] = part.reshape(n, *like[i].shape)
+    with span("comm.exchange"):
+        for dtype, idx in by_dtype.items():
+            sizes = [like[i].numel() for i in idx]
+            buf = torch.zeros(n, sum(sizes), dtype=dtype, device=device)
+            for s, ts in slots.items():
+                buf[s] = torch.cat([ts[i].detach().reshape(-1).to(device)
+                                    for i in idx])
+            pd.all_sum_(buf, group)
+            for i, part in zip(idx, buf.split(sizes, dim=1)):
+                out[i] = part.reshape(n, *like[i].shape)
     return out
 
 
@@ -242,12 +244,13 @@ def gather_rows(mesh: Mesh, rows: list[list], device=None,
     like = rows[0] if rows else like
     dest = [t.device if device is None else torch.device(device)
             for t in like]
-    if not mesh.multiprocess:
-        return [torch.stack([r[i].to(dest[i]) for r in rows])
-                for i in range(len(dest))]
-    stacks = exchange(dict(zip(mesh.owned_rows, rows)), mesh.shape["dp"],
-                      like, None, mesh.home)
-    return [s.to(d) for s, d in zip(stacks, dest)]
+    with span("comm.gather_rows"):
+        if not mesh.multiprocess:
+            return [torch.stack([r[i].to(dest[i]) for r in rows])
+                    for i in range(len(dest))]
+        stacks = exchange(dict(zip(mesh.owned_rows, rows)),
+                          mesh.shape["dp"], like, None, mesh.home)
+        return [s.to(d) for s, d in zip(stacks, dest)]
 
 
 def shard_batch(mesh: Mesh, batch):

@@ -100,7 +100,7 @@ from dl_ofdm_tpu_torch.parallel.mesh import (exchange, gather_rows,
 from dl_ofdm_tpu_torch.parallel.tp import TensorParallel
 from dl_ofdm_tpu_torch.train import checkpoint as ckpt
 from dl_ofdm_tpu_torch.train import metrics as M
-from dl_ofdm_tpu_torch.utils.observability import dump_constellation
+from dl_ofdm_tpu_torch.utils.observability import dump_constellation, span
 
 
 @dataclasses.dataclass
@@ -416,16 +416,20 @@ class Trainer:
         every rank).  `device` (the trainer's by default) is where the bits
         are drawn, and so where everything runs."""
         dev = self.device if device is None else device
-        if bits is None:
-            bits = torch.randint(
-                0, 2, (n_frames, self.plan.frame_size, self.cfg.nbits),
-                generator=generator, device=dev, dtype=torch.int32)
-        wf = ofdm_modulate_frames_iq(bits, self.plan)        # [B, S, K+CP, 2]
-        ch = self.channel(wf, generator)
-        y_iq, noise_pwr = awgn_channel(ch.y, snr_db, generator,
-                                       unit_noise=unit_noise)
-        rx_in = (batch_norm_ref(y_iq, group_onehot=norm_groups)
-                 if normalize else y_iq)
+        with span("data.tx"):
+            if bits is None:
+                bits = torch.randint(
+                    0, 2, (n_frames, self.plan.frame_size, self.cfg.nbits),
+                    generator=generator, device=dev, dtype=torch.int32)
+            wf = ofdm_modulate_frames_iq(bits, self.plan)    # [B, S, K+CP, 2]
+        with span("data.channel"):
+            ch = self.channel(wf, generator)
+        with span("data.awgn"):
+            y_iq, noise_pwr = awgn_channel(ch.y, snr_db, generator,
+                                           unit_noise=unit_noise)
+        with span("data.norm"):
+            rx_in = (batch_norm_ref(y_iq, group_onehot=norm_groups)
+                     if normalize else y_iq)
         return bits, rx_in, ch.h_freq, noise_pwr, wf
 
     # -- loss ----------------------------------------------------------------
@@ -436,22 +440,25 @@ class Trainer:
         metrics) of `params` on one batch, through `model` (the trainer's
         by default; a dp row's copy on a mesh), tensor parallel over `tp`'s
         ranks where given."""
-        logits = first_output(functional_call(
-            model or self.model, params, (rx_in,),
-            None if tp is None else {"tp": tp}))
-        ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
-        conf = M.confusion_matrix(bits, M.bit_predictions(logits))
+        with span("model.forward"):
+            logits = first_output(functional_call(
+                model or self.model, params, (rx_in,),
+                None if tp is None else {"tp": tp}))
+            ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
+            conf = M.confusion_matrix(bits, M.bit_predictions(logits))
         return ce, conf, {}
 
     def _global_terms(self, params: dict, ce: torch.Tensor,
                       conf: torch.Tensor):
         """(CE + stop_grad(BER) * reg_coeff * L2, metrics) from the batch's
         CE and counts (`loop.py:257-272`)."""
-        reg = M.l2_regularization(params)
-        log_ber, ber = M.ber_from_confusion(conf)
-        loss = ce + ber.detach() * self.tc.reg_coeff * reg
-        aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
-               "total_loss": ce + ber * self.tc.reg_coeff * reg + log_ber}
+        with span("optim.loss_terms"):
+            reg = M.l2_regularization(params)
+            log_ber, ber = M.ber_from_confusion(conf)
+            loss = ce + ber.detach() * self.tc.reg_coeff * reg
+            aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
+                   "total_loss": (ce + ber * self.tc.reg_coeff * reg
+                                  + log_ber)}
         return loss, aux
 
     def _loss_fn(self, params: dict, bits: torch.Tensor,
@@ -570,8 +577,11 @@ class Trainer:
         params.update(unflatten_leaves(spec, train))
         loss, aux = self._global_terms(self._l2_view(params, state.params),
                                        ce, conf)
-        row_grads = [torch.autograd.grad(w, leaves, materialize_grads=True)
-                     for _, leaves, w, _, _ in ranks]
+        row_grads = []
+        for _, leaves, w, _, _ in ranks:
+            with span("model.backward"):
+                row_grads.append(torch.autograd.grad(
+                    w, leaves, materialize_grads=True))
         # replicated leaves: each row's owner's gradients, on the home
         # device, summed in row order
         n_rep = len(rep_keys)
@@ -603,8 +613,10 @@ class Trainer:
         for k, n in spec:
             flat += ([summed[k]] if n is None
                      else [summed[(k, t)] for t in mesh.local_tps])
-        grads = unflatten_leaves(spec, torch._foreach_add(
-            flat, torch.autograd.grad(loss, train, materialize_grads=True)))
+        with span("model.backward"):
+            l2_grads = torch.autograd.grad(loss, train, materialize_grads=True)
+        with span("optim.loss_terms"):
+            grads = unflatten_leaves(spec, torch._foreach_add(flat, l2_grads))
         aux = {k: v.detach() for k, v in aux.items()}
         for i, k in enumerate(more):
             aux[k] = sum(terms[2 + i][r] for r in range(dp))
@@ -627,14 +639,15 @@ class Trainer:
             sq = [torch.sum(s * s) for k, v in grads.items()
                   for s in ([shard_of(k, full[k], tp, t) for t in range(tp)]
                             if isinstance(v, list) else [v])]
-        updates, opt_state = self.optimizer.update(grads, state.opt_state,
-                                                   sq)
-        spec, upd = flatten_leaves(updates)
-        _, old = flatten_leaves(self._leaves(state.params, state.replicas,
-                                             updates))
+        with span("optim.adam"):
+            updates, opt_state = self.optimizer.update(
+                grads, state.opt_state, sq)
+            spec, upd = flatten_leaves(updates)
+            _, old = flatten_leaves(self._leaves(
+                state.params, state.replicas, updates))
+            new = unflatten_leaves(spec, torch._foreach_add(old, upd))
         params = dict(state.params)
-        params.update(self._gathered(unflatten_leaves(
-            spec, torch._foreach_add(old, upd))))
+        params.update(self._gathered(new))
         return TrainState(params, opt_state, state.step + 1,
                           self._replicate(params))
 
@@ -666,16 +679,19 @@ class Trainer:
         b = self.batch_frames
         if self._fused_synth_spec is not None and (
                 self._use_fused_synth or words is not None):
-            bits, rx_in, noise_pwr = fused_synthesize(
-                self._fused_synth_spec, b, generator, snr_db, words=words)
+            with span("data.fused_synth"):
+                bits, rx_in, noise_pwr = fused_synthesize(
+                    self._fused_synth_spec, b, generator, snr_db,
+                    words=words)
         else:
             bits, rx_in, _, noise_pwr, _ = self.synthesize(b, snr_db,
                                                            generator)
         params = {k: v.detach().requires_grad_()
                   for k, v in state.params.items()}
         loss, aux = self._loss_fn(params, bits, rx_in)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
+        with span("model.backward"):
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
         aux = {k: v.detach() for k, v in aux.items()}
         aux.update(loss=loss.detach(), noise_power=noise_pwr)
         if return_grads:
@@ -687,20 +703,24 @@ class Trainer:
         """Synth kernel (raw planes) -> batch moments -> fused model
         gradient kernel -> L2 gradient -> Adam (`loop.py:296-335`)."""
         b = self.batch_frames
-        idx, yr, yi, nr, ni, stats = fused_synthesize(
-            self._fused_synth_spec, b, generator, snr_db, raw=True,
-            words=words)
-        _, c, noise_pwr, _ = _combine_stats(stats.sum(0), b)
-        grads, ce, conf = dccn_fused_grads(
-            self._fused_model_spec, b, state.params, yr, yi, nr, ni, c, idx)
-        log_ber, ber = M.ber_from_confusion(conf)
-        reg = M.l2_regularization(state.params)
-        rc = self.tc.reg_coeff
-        loss = ce + ber * rc * reg
-        reg_g = reg_grads(state.params, ber, rc)
-        keys = list(grads)
-        grads = dict(zip(keys, torch._foreach_add(
-            [grads[k] for k in keys], [reg_g[k] for k in keys])))
+        with span("data.fused_synth"):
+            idx, yr, yi, nr, ni, stats = fused_synthesize(
+                self._fused_synth_spec, b, generator, snr_db, raw=True,
+                words=words)
+            _, c, noise_pwr, _ = _combine_stats(stats.sum(0), b)
+        with span("model.fused_grads"):
+            grads, ce, conf = dccn_fused_grads(
+                self._fused_model_spec, b, state.params, yr, yi, nr, ni, c,
+                idx)
+        with span("optim.loss_terms"):
+            log_ber, ber = M.ber_from_confusion(conf)
+            reg = M.l2_regularization(state.params)
+            rc = self.tc.reg_coeff
+            loss = ce + ber * rc * reg
+            reg_g = reg_grads(state.params, ber, rc)
+            keys = list(grads)
+            grads = dict(zip(keys, torch._foreach_add(
+                [grads[k] for k in keys], [reg_g[k] for k in keys])))
         aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
                "total_loss": loss + log_ber, "loss": loss,
                "noise_power": noise_pwr}
@@ -851,22 +871,23 @@ class Trainer:
             last_ber, epoch_loss, val_ber, val_ce = pd.agree(
                 [aux["ber"], torch.stack(losses).mean(), val["ber"],
                  val["ce"]], self.device)
-            if grow_batch:
-                self.batch_frames = self._round_to_dp(
-                    self._ideal_batch_frames(last_ber))
-            if dump_constellations and pd.is_main_process():
-                dump_constellation(tc.token, val["iq_tx"], val["iq_rx"],
-                                   out_dir=tc.save_dir)
-            history.append({"epoch": epoch, "train_loss": epoch_loss,
-                            "val_ber": val_ber, "val_loss": val_ce})
-            log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
-                   f"val_ber={val_ber:.6f}")
-            if epoch_loss < best_loss:
-                best_loss, best_epoch = epoch_loss, epoch
-                best_params = state.params
-            if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
-                self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
-                                  best_epoch, best_params)
+            with span("fit.epoch_end"):
+                if grow_batch:
+                    self.batch_frames = self._round_to_dp(
+                        self._ideal_batch_frames(last_ber))
+                if dump_constellations and pd.is_main_process():
+                    dump_constellation(tc.token, val["iq_tx"], val["iq_rx"],
+                                       out_dir=tc.save_dir)
+                history.append({"epoch": epoch, "train_loss": epoch_loss,
+                                "val_ber": val_ber, "val_loss": val_ce})
+                log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
+                       f"val_ber={val_ber:.6f}")
+                if epoch_loss < best_loss:
+                    best_loss, best_epoch = epoch_loss, epoch
+                    best_params = state.params
+                if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
+                    self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
+                                      best_epoch, best_params)
             if epoch - tc.early_stop > best_epoch:
                 break
         state = TrainState(best_params, state.opt_state, state.step,

@@ -1,11 +1,42 @@
-"""Observability: constellation dumps, throughput counters, profiler traces.
+"""Observability: constellation dumps, throughput counters, profiler traces
+and the program's spans.
 
 Port of `dl_ofdm_tpu/utils/observability.py` (the reference's surface,
 SURVEY.md section 5.5: fp16 constellation CSV dumps `<token>_txiq.csv` /
 `<token>_rxiq.csv`, `dev/py/ofdmreceiver_np.py:151-152,264-265`).
 `Throughput` counts samples/s per stage, fenced on a CUDA event
 (`utils.timing.fence`); `profile_trace` wraps `torch.profiler` in place
-of `jax.profiler`.
+of `jax.profiler`, and its traces carry the spans below.
+
+`span(name)` marks a stretch of the host's work as `ofdm.<name>` in a
+profiler's trace, on the clock of the card's kernels there, so that a gap
+on the card can be put down to what the host was doing.  The names are
+`<layer>.<part>`, one level a layer, and no span of one layer holds a span
+of another on the single-card and data-parallel paths of
+`Trainer.train_step`, `eval_step`, `eval.sweep.eval_batch` and `fit` (a
+layer's spans may nest: `gather_rows` calls `exchange`; a tp row's
+exchanges run inside its model spans):
+
+  data    `tx` (bit draw, modulation), `channel`, `awgn`, `norm`
+          (`Trainer.synthesize`); `fused_synth` (the fused synthesize
+          kernel and its moments)
+  model   `forward` (the receiver, its CE and counts; `eval_batch`'s
+          error and CE sums), `backward` (each `torch.autograd.grad`),
+          `fused_grads` (the fused DCCN gradient kernel)
+  optim   `loss_terms` (BER from the counts, the L2 term and its
+          gradient), `adam` (Adam and the parameter update)
+  comm    `gather_rows`, `exchange` (`parallel/mesh.py`), `broadcast`,
+          `agree` (`parallel/distributed.py`: the collectives and the
+          host read)
+  fit     `epoch_end` (`fit` after the epoch's agreed read: batch growth,
+          constellation dump, log line, resume payload)
+
+A span carries no request or step identifier: the program is one thread
+and one closed-loop caller, so a step's spans are those inside its
+caller's own span or its `fit` epoch.  No profiler recording, no cost but
+one flag read: `span` then returns one shared null context.  A profiler
+turns them on (`profile_trace`, any `torch.profiler.profile`); there is no
+other switch.
 """
 from __future__ import annotations
 
@@ -16,8 +47,20 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from dl_ofdm_tpu_torch.utils.timing import fence
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`torch.profiler.record_function("ofdm." + name)` while a profiler
+    records, else the shared null context (`record_function` itself costs
+    microseconds with the profiler off)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function("ofdm." + name)
 
 
 def dump_constellation(token: str, tx_iq, rx_iq, limit: int = 2048,
@@ -82,7 +125,8 @@ def profile_trace(log_dir: str | None = None):
     """`torch.profiler` over the block (CPU, and CUDA where there is a
     device); on exit the Chrome trace is written to
     `<log_dir>/trace.json` (`<tmp>/torch-trace` by default; view it in
-    Perfetto or chrome://tracing).  Yields the profiler."""
+    Perfetto or chrome://tracing), the program's `ofdm.*` spans among its
+    events.  Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch-trace")
     os.makedirs(log_dir, exist_ok=True)

@@ -276,7 +276,19 @@ Phases, each printed with its elapsed seconds:
     bit-equal to the general path's on the same draws, one
     `fir_shift_accum` launch a call in each (6,242 rows against 9,363),
     ms a call of each.
- 5. (printed last) one `{"kernels": [...]}` line with all seven kernels
+28. (run after phase 8) the optimizer kernel (`csrc/fused_adam.cu`): at
+    nfft 64's ten leaves (0.58 M values) and the nfft-512 receiver's (29.3
+    M), one launch against `fused_adam_ref` (parameters and moments
+    bit-identical, the loss scalars within 1e-6), its time from a CUDA
+    graph and eager, with and without the L2 term, beside its byte bound
+    (28 bytes a value) and the `_foreach_*` path's (`Adam.update` and the
+    parameter add); then the fused 1,024-frame step, 20 steps with the
+    kernel bit-identical to 20 on the foreach path (forced in this
+    process by turning off a second trainer's `Adam.fused`), and ms/step
+    of each in turns K F F K; PyTorch's `torch._fused_adam_` timed beside
+    them.  Alone: `cs.phase_fused_adam(dev, hbm_bps)` after
+    `cuda_build.build_all()`.
+ 5. (printed last) one `{"kernels": [...]}` line with all eight kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
     its bf16 mode's GEMM from phases 21 and 22 beside phase 20's
@@ -285,7 +297,8 @@ Phases, each printed with its elapsed seconds:
     and 19 and 23 (with the baseline shape's numbers) and 24a
     (`launches_legacy`, with the legacy shapes' numbers), of
     `ring_exchange` from phase 19c, with its launches across processes
-    and their times from phase 26c; `complex_dense` and
+    and their times from phase 26c, of `fused_adam` from phase 8 with
+    phase 28's times; `complex_dense` and
     `fir_shift_accum` with `launches_multiprocess` from phase 26;
     `complex_dense` and
     `pack_stacked_weight` with `launches_tp` from phases 25a-b and the tp
@@ -846,6 +859,7 @@ def phase_train(tfm, tfs, dev) -> dict:
     launch counts on the fused main path."""
     import torch
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
     from dl_ofdm_tpu_torch.ops.pallas_kernels import complex_dense_kernel
     from dl_ofdm_tpu_torch.train.loop import Trainer
     cfg = OFDMConfig(nbits=1)
@@ -858,6 +872,7 @@ def phase_train(tfm, tfs, dev) -> dict:
     torch.cuda.synchronize()
     tfs.fused_synthesize_kernel.launches = 0
     tfm.dccn_fused_grads_kernel.launches = 0
+    fa.fused_adam_kernel.launches = 0
     complex_dense_kernel.launches = 0
     fused_steps = 0
     rows = []
@@ -881,7 +896,8 @@ def phase_train(tfm, tfs, dev) -> dict:
                      "ce": float(aux["ce"]), "ber": float(aux["ber"])})
     torch.cuda.synchronize()
     launches = {"fused_synthesize": tfs.fused_synthesize_kernel.launches,
-                "dccn_fused_grads": tfm.dccn_fused_grads_kernel.launches}
+                "dccn_fused_grads": tfm.dccn_fused_grads_kernel.launches,
+                "fused_adam": fa.fused_adam_kernel.launches}
     log(f"training main path: {fused_steps} fused steps, launches "
         f"{launches}, complex_dense {complex_dense_kernel.launches}")
     for name, n in launches.items():
@@ -969,6 +985,195 @@ def phase_train(tfm, tfs, dev) -> dict:
     if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
         raise AssertionError(f"fit did not lower the train CE: {hist}")
     return launches
+
+
+def adam_leaf_set(rx, dev, seed: int = 1):
+    """(keys, parameters, gradients, moments) of `rx`'s leaves on `dev`,
+    drawn from `seed`; at nfft 64 the head's gradients transposed and the
+    fft_like biases' strided, as the fused model kernel hands them."""
+    import torch
+    shapes = {k: tuple(v.shape) for k, v in rx.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, scale):
+        return scale * torch.randn(shape, device=dev, generator=g)
+
+    ws = {k: draw(sh, 0.1) for k, sh in shapes.items()}
+    gs = {k: draw(sh, 1e-3) for k, sh in shapes.items()}
+    if rx.nfft == 64:
+        for k in ("Dense_conv1x1.weight", "Dense_llr.weight"):
+            gs[k] = draw(shapes[k][::-1], 1e-3).T
+        dfb = draw((2 * shapes["fft_like.br"][0],), 1e-3)
+        gs["fft_like.br"], gs["fft_like.bi"] = dfb[0::2], dfb[1::2]
+    mus = {k: draw(sh, 1e-4) for k, sh in shapes.items()}
+    nus = {k: draw(sh, 1e-4) ** 2 for k, sh in shapes.items()}
+    return list(shapes), ws, gs, mus, nus
+
+
+def phase_fused_adam(dev, hbm_bps) -> dict:
+    """Phase 28: the optimizer kernel (`csrc/fused_adam.cu`): at nfft 64's
+    ten leaves (0.58 M values) and the nfft-512 receiver's (29.3 M), one
+    launch against `fused_adam_ref` (bit-identical; loss scalars within
+    1e-6), then its time (CUDA graph, and eager: the host's pace) with
+    and without the L2 term beside its byte bound (28 bytes a value) and
+    the `_foreach_*` path's (`Adam.update` and the parameter add) and
+    PyTorch's `torch._fused_adam_`'s (with and without the copies that
+    keep the input state whole; its parameters against the plain
+    version's); then the fused 1,024-frame step with the kernel and with
+    the foreach path (a second trainer whose optimizer's `fused` is
+    turned off): 20 steps bit-identical, and ms/step in turns K F F K."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    from dl_ofdm_tpu_torch.train.loop import Adam, Trainer
+    result = {"leaf_sets": {}}
+    for name, rx in (("nfft64", DCCNReceiver(1, 64, 16, 64, 320)),
+                     ("nfft512", DCCNReceiver(1, 512, 128, 512, 2000,
+                                              compute_dtype="bfloat16"))):
+        keys, ws, gs, mus, nus = adam_leaf_set(rx, dev)
+        args = [[d[k] for k in keys] for d in (ws, gs, mus, nus)]
+        n = sum(w.numel() for w in args[0])
+        lay = fa.AdamLayout.of({}, keys, *args)
+        conf = torch.tensor([[3000, 200], [350, 2850]], device=dev)
+        ce = torch.tensor([0.61], device=dev)
+        hp = fa.AdamHyper(0.9, 0.999, 1e-8, 1e-3, 7)
+        got = fa.fused_adam_kernel(lay, *args, hp, conf, ce, 1e-4)
+        want = fa.fused_adam_ref(keys, *args, hp, conf, ce[0], 1e-4)
+        torch.cuda.synchronize()
+        for field in ("params", "mu", "nu"):
+            for k, a, b in zip(keys, getattr(got, field),
+                               getattr(want, field)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"fused_adam {name} {field} {k}: "
+                                         f"kernel != plain version")
+        gap = max(abs(float(got.scalars[k]) / float(v) - 1)
+                  for k, v in want.scalars.items() if float(v) != 0)
+        if gap > 1e-6:
+            raise AssertionError(f"fused_adam {name} loss scalars: "
+                                 f"relative gap {gap}")
+        opt = Adam(TrainConfig())
+        st = {"count": 6, "mu": dict(zip(keys, args[2])),
+              "nu": dict(zip(keys, args[3]))}
+        gd = dict(zip(keys, args[1]))
+
+        def foreach():
+            upd, _ = opt.update(gd, st)
+            torch._foreach_add(args[0], [upd[k] for k in keys])
+
+        # PyTorch's one-launch Adam (`torch.optim.Adam(fused=True)`): in
+        # place on copies of its own, with dense gradients and no L2 fold;
+        # "library" first copies parameters and moments (one multi-tensor
+        # launch a plane), as a step that leaves its input state whole must
+        lib = [[t.clone() for t in a] for a in (args[0], args[2], args[3])]
+        dense_g = [g.contiguous() for g in args[1]]
+        lib_steps = [torch.tensor(7.0, device=dev) for _ in keys]
+
+        def library(copy=True):
+            p, m, v = ([torch._foreach_mul(a, 1.0) for a in lib] if copy
+                       else lib)
+            torch._fused_adam_(p, dense_g, m, v, [], lib_steps, lr=1e-3,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0,
+                               eps=1e-8, amsgrad=False, maximize=False)
+            return p
+
+        plain = fa.fused_adam_ref(keys, *args, hp).params
+        lib_w = library()
+        torch.cuda.synchronize()
+        lib_diff = {"values_differing": sum(
+            int((a != b).sum()) for a, b in zip(lib_w, plain)),
+            "max_abs": max(float((a - b).abs().max())
+                           for a, b in zip(lib_w, plain))}
+        del plain, lib_w
+        iters = 100 if n < 10 ** 7 else 20
+        times = {"kernel": [], "kernel_l2": [], "foreach": [],
+                 "library": [], "library_inplace": []}
+        runs = {"kernel": lambda: fa.fused_adam_kernel(lay, *args, hp),
+                "kernel_l2": lambda: fa.fused_adam_kernel(
+                    lay, *args, hp, conf, ce, 1e-4),
+                "foreach": foreach, "library": library,
+                "library_inplace": lambda: library(False)}
+        for r in ("kernel", "foreach", "library", "library_inplace",
+                  "kernel_l2", "kernel_l2", "library_inplace", "library",
+                  "foreach", "kernel"):
+            times[r].append(time_ms(runs[r], iters))
+        ms = {r: sum(t[0] for t in v) / len(v) for r, v in times.items()}
+        eager = {r: sum(t[1] for t in v) / len(v) for r, v in times.items()}
+        bound_ms = 28 * n / hbm_bps * 1e3
+        line = {"values": n, "leaves": len(keys), "kernel_ms": ms["kernel"],
+                "kernel_l2_ms": ms["kernel_l2"], "foreach_ms": ms["foreach"],
+                "library_ms": ms["library"],
+                "library_inplace_ms": ms["library_inplace"],
+                "library_vs_plain_params": lib_diff,
+                "eager_ms": eager, "bound_ms": bound_ms,
+                "roofline_pct": 100 * bound_ms / ms["kernel"],
+                "scalar_gap": gap, "timing": f"CUDA graph of {iters} calls"}
+        result["leaf_sets"][name] = line
+        print(json.dumps({"phase": 28, "kernel": "fused_adam",
+                          "leaf_set": name, **line}), flush=True)
+        log(f"fused_adam {name} ({n} values, {len(keys)} leaves): kernel == "
+            f"plain version; {ms['kernel']:.4f} ms ({ms['kernel_l2']:.4f} "
+            f"with the L2 term), bound {bound_ms:.4f} ms (bytes), foreach "
+            f"path {ms['foreach']:.4f} ms, torch._fused_adam_ "
+            f"{ms['library']:.4f} ms ({ms['library_inplace']:.4f} in place; "
+            f"{lib_diff['values_differing']} of {n} parameters off the "
+            f"plain version, by up to {lib_diff['max_abs']:.3g}); eager "
+            f"{eager['kernel']:.4f} / {eager['foreach']:.4f} / "
+            f"{eager['library']:.4f} ms a call")
+        del args, ws, gs, mus, nus, got, want, lay, st, gd, lib, dense_g
+        torch.cuda.empty_cache()
+
+    # the fused 1k step with the kernel and with the foreach path
+    trs = [Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 1024),
+                   channel="ETU") for _ in range(2)]
+    trs[1].optimizer.fused = lambda *a, **k: None
+    snr = torch.full((1024,), 5.0, device=dev)
+    init = trs[0].init_state(torch.Generator(device=dev).manual_seed(0))
+
+    def steps(count, foreach, keep=False):
+        gen = torch.Generator(device=dev).manual_seed(9)
+        state, out = init, []
+        for _ in range(count):
+            state, _ = trs[foreach].train_step(state, gen, snr)
+            if keep:
+                out.append(state)
+        return out
+
+    n0, f0 = fa.fused_adam_kernel.launches, Adam.foreach_steps
+    ks = steps(20, False, keep=True)
+    n1 = fa.fused_adam_kernel.launches
+    fs = steps(20, True, keep=True)
+    torch.cuda.synchronize()
+    if (n1 - n0, Adam.foreach_steps - f0,
+            fa.fused_adam_kernel.launches - n1) != (20, 20, 0):
+        raise AssertionError(f"fused_adam launches {n1 - n0}, foreach "
+                             f"steps {Adam.foreach_steps - f0}")
+    for i, (a, b) in enumerate(zip(ks, fs)):
+        for k in a.params:
+            if not (torch.equal(a.params[k], b.params[k])
+                    and torch.equal(a.opt_state["mu"][k], b.opt_state["mu"][k])
+                    and torch.equal(a.opt_state["nu"][k],
+                                    b.opt_state["nu"][k])):
+                raise AssertionError(f"fused step {i + 1}, {k}: kernel and "
+                                     f"foreach path differ")
+    log("fused 1,024-frame steps: 20 with the kernel bit-identical to 20 on "
+        "the foreach path (parameters and both moments)")
+    del ks, fs
+    step_ms = {"kernel": [], "foreach": []}
+    for foreach in (False, True, True, False):
+        steps(3, foreach)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps(200, foreach)
+        torch.cuda.synchronize()
+        step_ms["foreach" if foreach else "kernel"].append(
+            (time.perf_counter() - t) * 1e3 / 200)
+    result["step_ms"] = step_ms
+    print(json.dumps({"phase": 28, "fused_step_1k_ms": step_ms,
+                      "order": "K F F K, 200 steps each"}), flush=True)
+    log(f"fused 1,024-frame step: kernel {step_ms['kernel']} ms, foreach "
+        f"path {step_ms['foreach']} ms")
+    return result
 
 
 def bound_of(n_bytes, flops, hbm_bps, f32_flops, int_ops=0, sfu_ops=0):
@@ -4655,6 +4860,7 @@ def main() -> None:
     synth = phase_synth(tfs, dev, hbm_bps, f32_flops)
     model = phase_model(tfm, tfs, synth["planes"], dev, hbm_bps, f32_flops)
     launches_train = phase_train(tfm, tfs, dev)
+    adam = phase_fused_adam(dev, hbm_bps)
 
     # -- 9-12. the mobile training path, long frames, the probe ---------------
     mobile = phase_synth_mobile(tfs, dev, hbm_bps, f32_flops)
@@ -4768,6 +4974,17 @@ def main() -> None:
             k: sh[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by")}
             for sh in (tp_big["shape"], tp_512["shape"])})
+    big_set = adam["leaf_sets"]["nfft512"]
+    kernels.append({
+        "name": "fused_adam", "route": "cuda",
+        "source": "dl_ofdm_tpu_torch/csrc/fused_adam.cu",
+        "replaces": "none: optax's update, which XLA fuses on the TPU",
+        "launches": launches_train["fused_adam"], "ms": big_set["kernel_ms"],
+        "bound_ms": big_set["bound_ms"], "bound_by": "bytes",
+        "library_ms": big_set["library_ms"],
+        "foreach_ms": big_set["foreach_ms"],
+        "leaf_sets": adam["leaf_sets"],
+        "fused_step_1k_ms": adam["step_ms"], "check": "pass"})
     kernels.insert(1, {
         "name": "pack_stacked_weight", "route": "cuda",
         "source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",

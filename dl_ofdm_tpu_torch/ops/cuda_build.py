@@ -34,6 +34,7 @@ SOURCES = {"complex_dense": "complex_dense.cu",
            "complex_dense_bf16": "complex_dense_bf16.cu",
            "fused_synth": "fused_synth.cu",
            "fused_model": "fused_model.cu",
+           "fused_adam": "fused_adam.cu",
            "philox_probe": "philox_probe.cu",
            "fir_shift_accum": "fir_shift_accum.cu",
            "ring_exchange": "ring_exchange.cu"}

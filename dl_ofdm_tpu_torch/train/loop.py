@@ -20,6 +20,13 @@ fused route).
     kernel's normalized output (or on `synthesize` where the fused chain
     does not apply).
 
+On every route (and on a mesh with tp = 1) the L2 fold, Adam and the
+parameter write are one launch of the optimizer kernel
+(`ops/fused_adam.py`, `Adam.fused`) wherever the leaves are float32 on one
+card and `grad_clip` is 0; with clipping, on a tp mesh's shard lists and
+on the CPU `Adam.update`'s `_foreach_*` path takes the step, with the same
+float32 arithmetic.
+
 Parameters live in a `TrainState` as a dict keyed as the model's
 `state_dict()`; the model module only supplies the forward function
 (`torch.func.functional_call`).
@@ -86,6 +93,9 @@ from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
 from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
 from dl_ofdm_tpu_torch.ofdm.plan import build_plan
 from dl_ofdm_tpu_torch.ofdm.tx import ofdm_modulate_frames_iq
+from dl_ofdm_tpu_torch.ops.fused_adam import (AdamHyper, AdamLayout,
+                                              fused_adam_kernel,
+                                              kernel_layout)
 from dl_ofdm_tpu_torch.ops.fused_model import (ModelSpec, dccn_fused_grads,
                                                reg_grads)
 from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
@@ -142,14 +152,18 @@ class Adam:
     """optax's `adam` (b1 0.9, b2 0.999, eps 1e-8 outside the sqrt) behind
     its staircase `exponential_decay` schedule, optionally after
     `clip_by_global_norm` (`loop.py:60-67`), as functions of dicts of
-    tensors: `init(params)`, `update(grads, state)`.  A value may be the
-    list of a split leaf's shards (a tp mesh): Adam runs on each shard on
-    its device, and the global norm counts each element once."""
+    tensors: `init(params)`, `update(grads, state)`, and `fused(...)`, the
+    step and the parameter write as one call of `ops.fused_adam`.  A value
+    may be the list of a split leaf's shards (a tp mesh): Adam runs on each
+    shard on its device, and the global norm counts each element once."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    # steps `update` took on CUDA leaves (the `_foreach_*` path)
+    foreach_steps = 0
 
     def __init__(self, tc: TrainConfig):
         self.tc = tc
+        self._layouts = {}        # the fused kernel's, by leaf set
 
     def learning_rate(self, count: int) -> float:
         """The rate of the update that `count` updates precede."""
@@ -176,6 +190,8 @@ class Adam:
         spec, g = flatten_leaves(grads)
         moments = {m: flatten_leaves({k: state[m][k] for k in grads})[1]
                    for m in ("mu", "nu")}
+        if g and g[0].is_cuda:
+            Adam.foreach_steps += 1
         clip = self.tc.grad_clip
         if clip > 0:
             # optax's clip_by_global_norm: g if ||g|| < c else (g / ||g||) c
@@ -198,6 +214,44 @@ class Adam:
         return unflatten_leaves(spec, upd), {
             "count": count, "mu": unflatten_leaves(spec, mu),
             "nu": unflatten_leaves(spec, nu)}
+
+    def fused(self, params: dict, grads: dict, state: dict, conf=None,
+              ce=None, reg_coeff: float = 0.0, return_grads: bool = False):
+        """The step on `grads`' keys as one launch of `fused_adam_kernel`
+        where every leaf is float32 on one CUDA device (a leaf in another
+        layout copied to the kernel's, `kernel_layout`); None with clipping
+        or on any other leaves (CPU tensors, split leaves' shard lists),
+        where `update` takes the step.  With the counts `conf` and the mean
+        `ce` the `Dense` leaves' L2 term is folded into their gradients.
+        Returns a function that runs the step and gives (the new parameters
+        of `grads`' keys, the new state, the loss scalars (with `conf`),
+        the gradients the update used (with `return_grads`))."""
+        if self.tc.grad_clip > 0:
+            return None
+        keys = list(grads)
+        ws = [params[k] for k in keys]
+        gs = [grads[k] for k in keys]
+        mus = [state["mu"][k] for k in keys]
+        nus = [state["nu"][k] for k in keys]
+        lay = AdamLayout.of(self._layouts, keys, ws, gs, mus, nus)
+        if lay is None:
+            laid = kernel_layout(ws, gs, mus, nus)
+            if laid is None:
+                return None
+            ws, gs, mus, nus = laid
+            lay = AdamLayout.of(self._layouts, keys, ws, gs, mus, nus)
+        count = state["count"]
+        hp = AdamHyper(self.b1, self.b2, self.eps,
+                       self.learning_rate(count), count + 1)
+
+        def step():
+            out = fused_adam_kernel(lay, ws, gs, mus, nus, hp, conf, ce,
+                                    reg_coeff, return_grads)
+            return (dict(zip(keys, out.params)),
+                    {"count": hp.count, "mu": dict(zip(keys, out.mu)),
+                     "nu": dict(zip(keys, out.nu))}, out.scalars,
+                    None if out.grads is None else dict(zip(keys, out.grads)))
+        return step
 
 
 def make_optimizer(tc: TrainConfig) -> Adam:
@@ -640,12 +694,16 @@ class Trainer:
                   for s in ([shard_of(k, full[k], tp, t) for t in range(tp)]
                             if isinstance(v, list) else [v])]
         with span("optim.adam"):
-            updates, opt_state = self.optimizer.update(
-                grads, state.opt_state, sq)
-            spec, upd = flatten_leaves(updates)
-            _, old = flatten_leaves(self._leaves(
-                state.params, state.replicas, updates))
-            new = unflatten_leaves(spec, torch._foreach_add(old, upd))
+            old = self._leaves(state.params, state.replicas, grads)
+            step = self.optimizer.fused(old, grads, state.opt_state)
+            if step is not None:
+                new, opt_state, _, _ = step()
+            else:
+                updates, opt_state = self.optimizer.update(
+                    grads, state.opt_state, sq)
+                spec, upd = flatten_leaves(updates)
+                new = unflatten_leaves(spec, torch._foreach_add(
+                    flatten_leaves(old)[1], upd))
         params = dict(state.params)
         params.update(self._gathered(new))
         return TrainState(params, opt_state, state.step + 1,
@@ -701,7 +759,9 @@ class Trainer:
     def _train_step_fused(self, state, generator, snr_db, words,
                           return_grads):
         """Synth kernel (raw planes) -> batch moments -> fused model
-        gradient kernel -> L2 gradient -> Adam (`loop.py:296-335`)."""
+        gradient kernel -> L2 gradient -> Adam (`loop.py:296-335`); the last
+        two and the loss scalars as one kernel launch on a card
+        (`Adam.fused`), else the L2 term here and `_apply`."""
         b = self.batch_frames
         with span("data.fused_synth"):
             idx, yr, yi, nr, ni, stats = fused_synthesize(
@@ -713,20 +773,35 @@ class Trainer:
                 self._fused_model_spec, b, state.params, yr, yi, nr, ni, c,
                 idx)
         with span("optim.loss_terms"):
-            log_ber, ber = M.ber_from_confusion(conf)
-            reg = M.l2_regularization(state.params)
-            rc = self.tc.reg_coeff
-            loss = ce + ber * rc * reg
-            reg_g = reg_grads(state.params, ber, rc)
-            keys = list(grads)
-            grads = dict(zip(keys, torch._foreach_add(
-                [grads[k] for k in keys], [reg_g[k] for k in keys])))
-        aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
-               "total_loss": loss + log_ber, "loss": loss,
-               "noise_power": noise_pwr}
+            step = self.optimizer.fused(
+                state.params, grads, state.opt_state, conf, ce,
+                self.tc.reg_coeff, return_grads)
+            if step is None:
+                log_ber, ber = M.ber_from_confusion(conf)
+                reg = M.l2_regularization(state.params)
+                rc = self.tc.reg_coeff
+                loss = ce + ber * rc * reg
+                reg_g = reg_grads(state.params, ber, rc)
+                keys = list(grads)
+                grads = dict(zip(keys, torch._foreach_add(
+                    [grads[k] for k in keys], [reg_g[k] for k in keys])))
+        if step is None:
+            aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
+                   "total_loss": loss + log_ber, "loss": loss,
+                   "noise_power": noise_pwr}
+            if return_grads:
+                aux["grads"] = grads
+            return self._apply(state, grads), aux
+        with span("optim.adam"):
+            new, opt_state, sc, used = step()
+        params = dict(state.params)
+        params.update(new)
+        aux = {"ce": ce, "ber": sc["ber"], "log_ber": sc["log_ber"],
+               "conf": conf, "total_loss": sc["total_loss"],
+               "loss": sc["loss"], "noise_power": noise_pwr}
         if return_grads:
-            aux["grads"] = grads
-        return self._apply(state, grads), aux
+            aux["grads"] = used
+        return TrainState(params, opt_state, state.step + 1), aux
 
     @torch.no_grad()
     def eval_step(self, params: dict, generator: torch.Generator,

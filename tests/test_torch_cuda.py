@@ -359,6 +359,195 @@ def test_train_step_fused_on_card(cuda, nfilter):
     assert int(aux["conf"].sum()) == tr.batch_frames * 320
 
 
+@pytest.mark.parametrize("counts", [None, [[300, 20], [35, 285]]])
+@pytest.mark.parametrize("name", ["nfft64", "nfft512"])
+def test_fused_adam_kernel_matches_plain_version(cuda, name, counts):
+    """One launch over a DCCN's leaves (`chip_smoke.adam_leaf_set`: at
+    nfft 64 with the fused model kernel's strided gradients; the nfft-512
+    receiver's 29.3 M values) against `fused_adam_ref` on the same
+    tensors: parameters, moments and gradients bit-identical, the loss
+    scalars within 1e-6; two launches give the same bits; the inputs are
+    not written."""
+    from chip_smoke import adam_leaf_set
+    from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    rx = (DCCNReceiver(1, 512, 128, 512, 2000, compute_dtype="bfloat16")
+          if name == "nfft512" else DCCNReceiver(1, 64, 16, 64, 320))
+    keys, ws, gs, mus, nus = adam_leaf_set(rx, cuda)
+    args = [[d[k] for k in keys] for d in (ws, gs, mus, nus)]
+    before = [t.clone() for a in args for t in a]
+    conf = None if counts is None else torch.tensor(counts, device=cuda)
+    ce = torch.tensor([0.61], device=cuda)
+    hp = fa.AdamHyper(0.9, 0.999, 1e-8, 1e-3 * 0.98 ** 3, 1501)
+    lay = fa.AdamLayout.of({}, keys, *args)
+    assert lay is not None
+    n0 = fa.fused_adam_kernel.launches
+    outs = [fa.fused_adam_kernel(lay, *args, hp, conf, ce, 1e-4, True)
+            for _ in range(2)]
+    want = fa.fused_adam_ref(keys, *args, hp, conf, ce[0], 1e-4, True)
+    torch.cuda.synchronize()
+    assert fa.fused_adam_kernel.launches == n0 + 2
+    for got in outs:
+        for field in ("params", "mu", "nu", "grads"):
+            for k, a, b in zip(keys, getattr(got, field),
+                               getattr(want, field)):
+                assert torch.equal(a, b), (field, k)
+        assert (got.scalars is None) == (counts is None)
+        if counts is not None:
+            for k, v in want.scalars.items():
+                torch.testing.assert_close(got.scalars[k], v, rtol=1e-6,
+                                           atol=0, msg=k)
+    for field in ("params", "mu", "nu", "grads"):
+        for a, b in zip(getattr(outs[0], field), getattr(outs[1], field)):
+            assert torch.equal(a, b)
+    if counts is not None:
+        for k in fa.SCALARS:
+            assert torch.equal(outs[0].scalars[k], outs[1].scalars[k]), k
+    assert all(torch.equal(t, b) for t, b in zip(
+        (t for a in args for t in a), before))
+
+
+def test_fused_steps_with_the_kernel_equal_the_foreach_path(cuda,
+                                                             monkeypatch):
+    """20 fused steps at 1,024 frames from one init and one seed: the
+    parameters and both moments after each step bit-identical between the
+    kernel and the L2 term with `Adam.update` (a second trainer whose
+    optimizer's `fused` the test turns off)."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    from dl_ofdm_tpu_torch.train.loop import Adam, Trainer
+    tk, tf = (Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 1024),
+                      channel="ETU") for _ in range(2))
+    monkeypatch.setattr(tf.optimizer, "fused", lambda *a, **k: None)
+    assert tk._use_fused_model and tk.batch_frames == 1024
+    init = tk.init_state(torch.Generator(device=cuda).manual_seed(0))
+    snr = torch.full((1024,), 5.0, device=cuda)
+    gens = [torch.Generator(device=cuda).manual_seed(9) for _ in range(2)]
+    (sk, sf) = (init, init)
+    n0, f0 = fa.fused_adam_kernel.launches, Adam.foreach_steps
+    for i in range(20):
+        sk, ak = tk.train_step(sk, gens[0], snr)
+        sf, af = tf.train_step(sf, gens[1], snr)
+        for k in init.params:
+            assert torch.equal(sk.params[k], sf.params[k]), (i, k)
+            for m in ("mu", "nu"):
+                assert torch.equal(sk.opt_state[m][k],
+                                   sf.opt_state[m][k]), (i, m, k)
+        for k in ("ce", "ber", "log_ber", "loss", "total_loss"):
+            torch.testing.assert_close(ak[k], af[k], rtol=1e-6, atol=0,
+                                       msg=k)
+    torch.cuda.synchronize()
+    assert fa.fused_adam_kernel.launches == n0 + 20
+    assert Adam.foreach_steps == f0 + 20
+
+
+def test_fused_adam_copies_other_layouts_to_the_kernels(cuda):
+    """A moment laid out transposed and a 3-D gradient view on a card:
+    `Adam.fused` copies them to the kernel's layout and launches it (no
+    step on the foreach path), with the bits of the contiguous leaves;
+    the step's loss scalars are a 5-value tensor apart from its state."""
+    from dl_ofdm_tpu_torch.config import TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    from dl_ofdm_tpu_torch.train.loop import Adam
+    g = torch.Generator(device=cuda).manual_seed(4)
+    shapes = {"Dense_a.weight": (6, 5), "Dense_a.bias": (6,),
+              "fft_like.wr": (2, 3, 4)}
+    params = {k: torch.randn(s, device=cuda, generator=g)
+              for k, s in shapes.items()}
+    grads = {k: torch.randn(s, device=cuda, generator=g)
+             for k, s in shapes.items()}
+    opt = Adam(TrainConfig())
+    state = opt.init(params)
+    state["mu"] = {k: 0.1 * torch.randn(s, device=cuda, generator=g)
+                   for k, s in shapes.items()}
+    odd_state = {**state, "mu": {**state["mu"], "Dense_a.weight":
+                                 state["mu"]["Dense_a.weight"].T
+                                 .contiguous().T}}
+    odd_grads = {**grads, "fft_like.wr":
+                 grads["fft_like.wr"].permute(2, 0, 1).contiguous()
+                 .permute(1, 2, 0)}
+    assert not odd_state["mu"]["Dense_a.weight"].is_contiguous()
+    assert fa.AdamLayout.of({}, list(grads), *[
+        [d[k] for k in grads] for d in (params, odd_grads,
+                                        odd_state["mu"], state["nu"])]) \
+        is None
+    conf = torch.tensor([[30, 2], [3, 25]], device=cuda)
+    ce = torch.tensor([0.5], device=cuda)
+    n0, f0 = fa.fused_adam_kernel.launches, Adam.foreach_steps
+    outs = [opt.fused(params, gd, st, conf, ce, 0.5)()
+            for gd, st in ((grads, state), (odd_grads, odd_state))]
+    torch.cuda.synchronize()
+    assert fa.fused_adam_kernel.launches == n0 + 2
+    assert Adam.foreach_steps == f0
+    (p0, s0, sc0, _), (p1, s1, sc1, _) = outs
+    for k in shapes:
+        assert torch.equal(p0[k], p1[k]), k
+        for m in ("mu", "nu"):
+            assert torch.equal(s0[m][k], s1[m][k]), (m, k)
+    for k in fa.SCALARS:
+        assert torch.equal(sc0[k], sc1[k]), k
+        assert sc1[k].untyped_storage().nbytes() == 4 * len(fa.SCALARS)
+
+
+def test_fit_keeping_total_losses_holds_no_step_state(cuda):
+    """`fit(best_metric="total")` keeps each step's `total_loss` until its
+    epoch ends (197 fused steps, one launch each, at the default batch).
+    Those are the kernel's 20-byte scalars: 40 steps whose total losses
+    are kept, as `fit` keeps them, leave the memory in use within two
+    states (parameters and moments) of where it was."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    tr = Trainer(OFDMConfig(nbits=1), TrainConfig(best_metric="total"),
+                 channel="ETU")
+    assert tr._use_fused_model and tr.batch_frames == 73
+    n0 = fa.fused_adam_kernel.launches
+    tr.fit(max_epochs=1, log_fn=lambda m: None, grow_batch=False)
+    torch.cuda.synchronize()
+    assert fa.fused_adam_kernel.launches - n0 == 14400 // 73
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    state = tr.init_state(gen)
+    snr = torch.full((73,), 5.0, device=cuda)
+    for _ in range(3):
+        state, aux = tr.train_step(state, gen, snr)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    losses = []
+    for _ in range(40):
+        state, aux = tr.train_step(state, gen, snr)
+        losses.append(aux["total_loss"])
+    torch.cuda.synchronize()
+    state_bytes = 4 * 3 * sum(p.numel() for p in state.params.values())
+    grown = torch.cuda.memory_allocated() - before
+    assert grown <= 2 * state_bytes, (grown, state_bytes)
+    assert torch.isfinite(torch.stack(losses)).all()
+
+
+@pytest.mark.parametrize("route", ["fused", "autograd", "dp2"])
+def test_fused_adam_kernel_takes_every_step(cuda, route):
+    """The kernel's launches equal the steps and no step takes the foreach
+    path: the fused route, the autograd route, a one-process dp-2 mesh."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import fused_adam as fa
+    from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
+    from dl_ofdm_tpu_torch.train.loop import Adam, Trainer
+    card = torch.device("cuda", 0)
+    mesh = make_mesh([card, card], dp=2) if route == "dp2" else None
+    tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 64),
+                 channel="AWGN", mesh=mesh)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = tr.init_state(g)
+    snr = torch.full((tr.batch_frames,), 5.0, device=cuda)
+    n0, f0 = fa.fused_adam_kernel.launches, Adam.foreach_steps
+    for _ in range(3):
+        state, aux = tr.train_step(
+            state, g, snr, **({} if mesh else {"fused": route == "fused"}))
+    torch.cuda.synchronize()
+    assert fa.fused_adam_kernel.launches == n0 + 3
+    assert Adam.foreach_steps == f0
+    assert state.step == 3 and torch.isfinite(aux["loss"])
+
+
 @pytest.mark.parametrize("longcp", [True, False])
 def test_train_step_fused_at_nfft_128(cuda, longcp):
     """Frames of 1,120 and 959 samples (sps 160 and 137) take the fused

@@ -2,8 +2,9 @@
 ctypes bindings, on the CPU (no card): `parallel/halo.py::ring_plan` built
 from `torch.device("cuda", i)` objects (the template, the handshake words
 that partners signal and wait on, every side covered once), the pointer
-slots of a launch's `_RingArgs`, and `_RingSide`, `_RingArgs` and
-`_ProbeArgs` against their structs in `csrc/`, field for field."""
+slots of a launch's `_RingArgs`, the fused Adam kernel's launch layout,
+and `_RingSide`, `_RingArgs`, `_ProbeArgs`, `_AdamLeaf` and `_AdamArgs`
+against their structs in `csrc/`, field for field."""
 import ctypes
 import os
 import re
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from dl_ofdm_tpu_torch.ops import cuda_build
+from dl_ofdm_tpu_torch.ops import fused_adam as fa
 from dl_ofdm_tpu_torch.ops import prng_probe as pp
 from dl_ofdm_tpu_torch.parallel import halo
 
@@ -192,7 +194,8 @@ def test_ring_launch_alloc_puts_each_buffer_at_its_offset(hr):
 # -- the C structs behind the ctypes bindings ------------------------------
 
 _C_SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-              "unsigned int": ctypes.c_uint, "uint32_t": ctypes.c_uint32}
+              "unsigned int": ctypes.c_uint, "uint32_t": ctypes.c_uint32,
+              "float": ctypes.c_float}
 
 
 def _c_struct(source: str, name: str) -> list:
@@ -232,9 +235,11 @@ def _same_type(ct, ctype: str, structs: dict) -> bool:
 @pytest.mark.parametrize("source,name,cls", [
     ("ring_exchange.cu", "RingSide", halo._RingSide),
     ("ring_exchange.cu", "RingArgs", halo._RingArgs),
-    ("philox_probe.cu", "ProbeArgs", pp._ProbeArgs)])
+    ("philox_probe.cu", "ProbeArgs", pp._ProbeArgs),
+    ("fused_adam.cu", "AdamLeaf", fa._AdamLeaf),
+    ("fused_adam.cu", "AdamArgs", fa._AdamArgs)])
 def test_ctypes_structs_match_their_c_structs(source, name, cls):
-    structs = {"RingSide": halo._RingSide}
+    structs = {"RingSide": halo._RingSide, "AdamLeaf": fa._AdamLeaf}
     fields = _c_struct(source, name)
     assert [f for f, _, _ in fields] == [f for f, *_ in cls._fields_]
     for (field, ctype, n), (_, ct) in zip(fields, cls._fields_):
@@ -243,3 +248,142 @@ def test_ctypes_structs_match_their_c_structs(source, name, cls):
         else:
             assert issubclass(ct, ctypes.Array) and ct._length_ == n, field
             assert _same_type(ct._type_, ctype, structs), (field, ctype)
+
+
+def test_fused_adam_constants_match_the_source():
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_adam.cu")) as f:
+        defines = {k: int(v) for k, v in re.findall(
+            r"^#define\s+(\w+)\s+(\d+)\s*$", f.read(), re.M)}
+    assert fa.THREADS == defines["THREADS"]
+    assert fa.TILE == defines["THREADS"] * defines["ITEMS"]
+    assert fa.MAX_LEAVES == defines["MAX_LEAVES"]
+
+
+@pytest.mark.parametrize("n_leaves", [10, 48, 97])
+def test_adam_layout_tiles_offsets_and_pointer_slots(n_leaves):
+    """`AdamLayout` on CPU tensors with 132 SMs given: chunks of at most
+    MAX_LEAVES leaves, each leaf's tiles and its outputs on 512 bytes
+    without overlap, the gradients' strided views, the Dense flags, and
+    each pointer the step writes landing in its leaf's slot."""
+    gen = torch.Generator().manual_seed(n_leaves)
+    keys, ws, gs = [], [], []
+    for i in range(n_leaves):
+        shape = [(3000, 7), (5,), (4, 2), (1,), (70000,)][i % 5]
+        keys.append(f"{'Dense' if i % 3 else 'fft_like'}_{i}.w")
+        ws.append(torch.randn(shape, generator=gen))
+        g = torch.randn(shape[::-1], generator=gen)
+        gs.append(g.T if len(shape) == 2 and i % 2 else g.reshape(shape))
+    lay = fa.AdamLayout(keys, ws, gs, sms=132)
+    chunks = -(-n_leaves // fa.MAX_LEAVES)
+    assert len(lay.launches) == chunks
+    ptrs = np.arange(4 * n_leaves, dtype=np.uint64) * 16 + (1 << 40)
+    lay.write(ptrs)
+    i, end = 0, 0
+    for c, launch in enumerate(lay.launches):
+        a = launch.args
+        assert (a.chunk, a.chunks) == (c, chunks)
+        assert a.leaves == min(fa.MAX_LEAVES, n_leaves - c * fa.MAX_LEAVES)
+        assert a.plane == lay.plane and a.grid == min(a.tiles, 4 * 132)
+        tile0 = 0
+        for j in range(a.leaves):
+            leaf, w, g = a.leaf[j], ws[i], gs[i]
+            assert (leaf.w, leaf.g, leaf.mu, leaf.nu) == tuple(
+                int(p) for p in ptrs[4 * i:4 * i + 4])
+            assert leaf.n == w.numel() and leaf.tile0 == tile0
+            assert leaf.off % fa.ALIGN == 0 and leaf.off >= end
+            end = leaf.off + leaf.n
+            assert leaf.dense == ("Dense" in keys[i])
+            # the gradient's element e where the kernel reads it
+            e = torch.arange(w.numel())
+            flat = torch.as_strided(g, (g.untyped_storage().nbytes() // 4,),
+                                    (1,), 0)
+            at = (e // leaf.cols) * leaf.s0 + (e % leaf.cols) * leaf.s1
+            assert torch.equal(flat[at + g.storage_offset()],
+                               g.reshape(-1)), keys[i]
+            tile0 += -(-leaf.n // fa.TILE)
+            i += 1
+        assert a.tiles == tile0
+    assert i == n_leaves and end <= lay.plane
+
+
+def _small_layout():
+    keys = ["Dense_a.weight", "Dense_a.bias", "fft_like.wr"]
+    ws = [torch.zeros(4, 3), torch.zeros(4), torch.zeros(2, 5)]
+    gs = [torch.zeros(3, 4).T, torch.zeros(4), torch.zeros(2, 5)]
+    return keys, ws, gs, fa.AdamLayout(keys, ws, gs, sms=132)
+
+
+@pytest.mark.parametrize("hold", ["view", "alias", "detached", "list",
+                                  "scalar"])
+def test_adam_layout_reuses_a_buffer_only_once_released(hold):
+    """`AdamLayout.take` (CPU buffers): while a caller holds anything on a
+    step's buffer (one of its views, a view of that view, a detached
+    tensor on it, the list a step returns; a loss scalar on the scalars'
+    own buffer) the next step gets another buffer; once it lets go, the
+    same buffer and views serve again."""
+    _, _, _, lay = _small_layout()
+    planes = 0 if hold == "scalar" else 3
+    first = lay.take(planes)
+    held = {"view": lambda: first.planes[1][2],
+            "alias": lambda: first.planes[0][0].reshape(-1)[1:],
+            "detached": lambda: first.planes[0][1].detach(),
+            "list": lambda: list(first.planes[2]),
+            "scalar": lambda: dict(zip(fa.SCALARS, first.planes[0]))}[hold]()
+    # the pool's other buffers held too, so only the first can serve
+    busy = []
+    for _ in range(lay.POOL - 1):
+        slot = lay.take(planes)
+        assert slot.buf.data_ptr() != first.buf.data_ptr()
+        busy.append(slot.planes[0][0])
+    ptr, views = first.buf.data_ptr(), first.planes
+    del held
+    again = lay.take(planes)
+    assert again.buf.data_ptr() == ptr and again.planes is views
+    assert [(v.shape, v.is_contiguous()) for v in again.planes[0]] == (
+        [((), True)] * len(fa.SCALARS) if planes == 0 else
+        [((4, 3), True), ((4,), True), ((2, 5), True)])
+    assert lay.pool[3 - planes] == []
+
+
+def test_adam_layout_knows_its_own_outputs():
+    """`AdamLayout.of` passes the layout's own views as parameters and
+    moments (with gradients of its shapes and strides) on the short check,
+    and anything else through the full one: a CPU leaf set is refused."""
+    keys, ws, gs, lay = _small_layout()
+    cache = {None: lay}
+    slot = lay.take(3)
+    p, mu, nu = slot.planes[0], slot.planes[1], slot.planes[2]
+    assert lay._made(keys, p, gs, mu, nu)
+    assert fa.AdamLayout.of(cache, keys, p, gs, mu, nu) is lay
+    assert not lay._made(keys, p, gs, [m.clone() for m in mu], nu)
+    assert not lay._made(keys, p, [g.contiguous() for g in gs], mu, nu)
+    assert not lay._made(keys[::-1], p, gs, mu, nu)
+    assert fa.AdamLayout.of(cache, keys, ws, gs, ws, ws) is None
+
+
+@pytest.mark.parametrize("leaves", ["cpu", "shard_list"])
+def test_kernel_layout_leaves_other_leaves_to_the_foreach_path(leaves):
+    """`kernel_layout` gives None, so `Adam.update` takes the step, for
+    CPU tensors and for a split leaf's list of shards (a card's leaves in
+    other layouts are copied: `tests/test_torch_cuda.py`)."""
+    keys, ws, gs, _ = _small_layout()
+    if leaves == "shard_list":
+        ws = [list(w.chunk(2)) if i == 0 else w for i, w in enumerate(ws)]
+    assert fa.kernel_layout(ws, gs, ws, ws) is None
+
+
+def test_adam_layout_keeps_its_newest_buffers():
+    """Buffers a caller keeps (the benchmark's first steps) leave the pool
+    as newer ones come: more held than the pool keeps, the next steps
+    still reuse one buffer."""
+    _, _, _, lay = _small_layout()
+    held = [lay.take(3).planes[0][0] for _ in range(lay.POOL + 1)]
+    ptrs = []
+    for _ in range(6):
+        slot = lay.take(3)
+        ptrs.append(slot.buf.data_ptr())
+        del slot
+    assert len(lay.pool[3]) == lay.POOL
+    assert len(set(ptrs)) == 1
+    assert all(h.data_ptr() not in ptrs for h in held)
+

@@ -104,6 +104,138 @@ def test_optimizer_matches_optax(grad_clip, rng):
                       rtol=1e-6, atol=1e-7)
 
 
+def _adam_leaves(gen):
+    """Dense and other leaves of the fused route's kinds: 2-D weights (one
+    gradient a transposed view, as the model kernel hands the head's), a
+    bias, a strided 1-D gradient (`dfb[0::2]`) and a 0-dim leaf."""
+    shapes = {"Dense_a.weight": (6, 5), "Dense_a.bias": (6,),
+              "Dense_h.weight": (4, 3), "fft_like.wr": (5, 7),
+              "fft_like.br": (7,), "other.scale": ()}
+    params = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+
+    def grads():
+        g = {k: 0.1 * torch.randn(s, generator=gen) for k, s in shapes.items()}
+        g["Dense_h.weight"] = (0.1 * torch.randn(3, 4, generator=gen)).T
+        g["fft_like.br"] = 0.1 * torch.randn(14, generator=gen)[0::2]
+        return g
+    return params, grads
+
+
+# (confusion counts or None, reg_coeff): BER 0.25, BER 0 (no counts at
+# all: the sum clamped to 1), no L2 term (the autograd route's leaves)
+ADAM_CASES = {"ber_quarter": ([[40, 10], [15, 35]], 0.5),
+              "ber_zero_total_clamped": ([[0, 0], [0, 0]], 0.5),
+              "no_counts": (None, 0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(ADAM_CASES))
+def test_fused_adam_ref_matches_foreach_path(case):
+    """Five steps across a staircase boundary (lr_decay_steps=2) of
+    `fused_adam_ref` against `reg_grads`, `_foreach_add` and
+    `Adam.update` (the fused route's path before the kernel): parameters,
+    moments and the gradients used, bit for bit."""
+    from dl_ofdm_tpu_torch.ops.fused_adam import AdamHyper, fused_adam_ref
+    from dl_ofdm_tpu_torch.ops.fused_model import reg_grads
+    counts, rc = ADAM_CASES[case]
+    gen = torch.Generator().manual_seed(7)
+    params, draw = _adam_leaves(gen)
+    opt = make_optimizer(TrainConfig(lr_decay_steps=2, lr_decay_rate=0.5))
+    want_p, want_s = dict(params), opt.init(params)
+    got_p, got_s = dict(params), opt.init(params)
+    conf = None if counts is None else torch.tensor(counts)
+    ce = torch.tensor(0.6)
+    keys = list(params)
+    for _ in range(5):
+        g = draw()
+        if conf is not None:
+            _, ber = TM.ber_from_confusion(conf)
+            reg_g = reg_grads(want_p, ber, rc)
+            g_want = dict(zip(keys, torch._foreach_add(
+                [g[k] for k in keys], [reg_g[k] for k in keys])))
+        else:
+            g_want = g
+        upd, want_s = opt.update(g_want, want_s)
+        want_p = {k: want_p[k] + upd[k] for k in keys}
+        count = got_s["count"]
+        hp = AdamHyper(opt.b1, opt.b2, opt.eps, opt.learning_rate(count),
+                       count + 1)
+        out = fused_adam_ref(keys, [got_p[k] for k in keys],
+                             [g[k] for k in keys],
+                             [got_s["mu"][k] for k in keys],
+                             [got_s["nu"][k] for k in keys], hp, conf, ce,
+                             rc, return_grads=True)
+        got_p = dict(zip(keys, out.params))
+        got_s = {"count": count + 1, "mu": dict(zip(keys, out.mu)),
+                 "nu": dict(zip(keys, out.nu))}
+        assert (out.scalars is None) == (conf is None)
+        for k in keys:
+            assert torch.equal(dict(zip(keys, out.grads))[k], g_want[k]), k
+            assert torch.equal(got_p[k], want_p[k]), k
+            for m in ("mu", "nu"):
+                assert torch.equal(got_s[m][k], want_s[m][k]), (m, k)
+    assert got_s["count"] == want_s["count"] == 5
+
+
+@pytest.mark.parametrize("counts", [[[40, 10], [15, 35]], [[0, 0], [0, 0]]])
+def test_fused_adam_ref_loss_scalars_match_global_terms(counts):
+    """reg, BER, log BER, loss and total loss of `fused_adam_ref` against
+    `M.l2_regularization` and `Trainer._global_terms` on the same leaves
+    and counts."""
+    from dl_ofdm_tpu_torch.ops.fused_adam import AdamHyper, fused_adam_ref
+    tt = Trainer(OFDMConfig(nbits=1), TrainConfig(reg_coeff=0.5),
+                 channel="AWGN", device="cpu")
+    params = tt.init_state(torch.Generator().manual_seed(3)).params
+    params = {k: v + 0.1 for k, v in params.items()}    # nonzero biases
+    keys = list(params)
+    conf, ce = torch.tensor(counts), torch.tensor(0.6)
+    zeros = [torch.zeros_like(params[k]) for k in keys]
+    out = fused_adam_ref(keys, [params[k] for k in keys], zeros, zeros,
+                         zeros, AdamHyper(0.9, 0.999, 1e-8, 1e-3, 1), conf,
+                         ce, 0.5)
+    loss, aux = tt._global_terms(params, ce, conf)
+    want = {"reg": TM.l2_regularization(params), "ber": aux["ber"],
+            "log_ber": aux["log_ber"], "loss": loss,
+            "total_loss": aux["total_loss"]}
+    assert set(out.scalars) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(float(out.scalars[k]), float(v),
+                                   rtol=1e-6, err_msg=k)
+
+
+def test_fused_step_on_cpu_keeps_aux_state_and_inputs():
+    """The fused route on the CPU (the L2 term, then `Adam.update`): aux's
+    keys, the state's structure, and the step's inputs (the parameters and
+    moments it started from) unwritten."""
+    n = 4
+    tt = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * n),
+                 channel="ETU", device="cpu")
+    state = tt.init_state(torch.Generator().manual_seed(0))
+    w0 = {k: v.clone() for k, v in state.params.items()}
+    gen = torch.Generator().manual_seed(1)
+    snr = torch.full((n,), 5.0)
+    s1, a1 = tt.train_step(state, gen, snr, fused=True)
+    mu1 = {k: v.clone() for k, v in s1.opt_state["mu"].items()}
+    s2, a2 = tt.train_step(s1, gen, snr, fused=True, return_grads=True)
+    assert set(a1) == {"ce", "ber", "log_ber", "conf", "total_loss", "loss",
+                       "noise_power"}
+    assert set(a2) == set(a1) | {"grads"}
+    assert set(a2["grads"]) == set(w0)
+    for a in (a1, a2):
+        assert all(a[k].dim() == 0 and a[k].dtype == torch.float32
+                   for k in ("ber", "log_ber", "total_loss", "loss"))
+    for s, step in ((s1, 1), (s2, 2)):
+        assert s.step == step and s.replicas is None
+        assert s.opt_state["count"] == step
+        assert set(s.params) == set(s.opt_state["mu"]) == set(
+            s.opt_state["nu"]) == set(w0)
+        assert all(s.params[k].shape == w0[k].shape for k in w0)
+    for k, v in w0.items():
+        assert torch.equal(state.params[k], v), k
+        assert torch.count_nonzero(state.opt_state["mu"][k]) == 0, k
+        assert torch.equal(s1.opt_state["mu"][k], mu1[k]), k
+    assert not all(torch.equal(s2.params[k], w0[k]) for k in w0)
+
+
 def _jax_step(jt, params, opt_state, key, snr, rc):
     """JAX's fused step on the CPU: emulate -> (combine inside) -> autodiff
     of the CE on rx -> reg_grads -> optax, jitted as one program."""

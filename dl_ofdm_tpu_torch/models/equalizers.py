@@ -31,6 +31,7 @@ from dl_ofdm_tpu_torch.ops import cfloat
 from dl_ofdm_tpu_torch.ops.complex_ops import (ComplexConv2d, ComplexDense,
                                                lecun_normal_)
 from dl_ofdm_tpu_torch.ops.norms import frame_layer_norm, leaky_relu
+from dl_ofdm_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,23 +215,31 @@ class Equalizer(nn.Module):
     def forward(self, x: torch.Tensor, tp=None):
         """`tp` (a `parallel.tp.TensorParallel` of this module's keys) runs
         `Dense_interp*` and `Dense_block*` column-parallel over a dp row's
-        tp ranks, their outputs gathered before the activations."""
+        tp ranks, their outputs gathered before the activations.  The
+        three stages carry the `eq.front`, `eq.chest` and `eq.equalize`
+        spans."""
         spec = self.spec
         if spec.legacy_dnn:
             return self._legacy_dnn(x)
-        k, s = self.nfft, self.nsymbol
-        b, n_sc = x.shape[0], x.shape[2]
+        with span("eq.front"):
+            input_freq = self._to_freq(x)                  # [B, S, K, 2]
+        with span("eq.chest"):
+            chest_iq = self._chest(input_freq, tp)         # [B, S, K, 2]
+        with span("eq.equalize"):
+            return self._equalize(input_freq, chest_iq, x.shape[2])
+
+    def _to_freq(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, b = self.nfft, self.nsymbol, x.shape[0]
         h = self.Dense_in(self._front(x)).reshape(b, s, k, 2)
-
-        # -- to frequency domain ------------------------------------------
-        if spec.to_freq == "dense":
-            freq = self.Dense_tofreq(h.reshape(b, s, k * 2)).reshape(
+        if self.spec.to_freq == "dense":
+            return self.Dense_tofreq(h.reshape(b, s, k * 2)).reshape(
                 b, s, k, 2)
-        else:
-            freq = self.ToFreq(h)
-        input_freq = freq                                  # [B, S, K, 2]
+        return self.ToFreq(h)
 
-        # -- pilot extraction, cascade, interpolation ------------------------
+    def _chest(self, freq: torch.Tensor, tp) -> torch.Tensor:
+        """Pilot extraction, cascade, interpolation and the refinement
+        blocks: the channel estimate [B, S, K, 2]."""
+        spec, k, s, b = self.spec, self.nfft, self.nsymbol, freq.shape[0]
         c = self.Dense_pilot(freq.reshape(b, s * k * 2))
         if spec.cascade > 0:
             p_iq = self.pilot_size * 2
@@ -244,6 +253,7 @@ class Equalizer(nn.Module):
                 stages.append(nxt)
                 prev, cur = cur, nxt
             c = torch.cat(stages, dim=-1)
+
         def wide(name, v):
             layer = getattr(self, name)
             return layer(v) if tp is None else tp.column_linear(layer, name,
@@ -253,26 +263,25 @@ class Equalizer(nn.Module):
             c = wide(f"Dense_interp{i}", c)
             if act == "tanh":
                 c = torch.tanh(c)
-
-        # -- refinement blocks --------------------------------------------
         for i in range(spec.n_blocks):
             c = torch.tanh(wide(f"Dense_block{i}", c.reshape(b, -1)))
             if spec.block_conv != "none":
                 blk = getattr(self, f"BlockConv{i}")(c.reshape(b, s, k, 1, 2))
                 c = blk.reshape(b, s * k * 2)
-        chest_iq = c.reshape(b, s, k, 2)                   # [B, S, K, 2]
+        return c.reshape(b, s, k, 2)
 
+    def _equalize(self, input_freq: torch.Tensor, chest_iq: torch.Tensor,
+                  n_sc: int):
+        """The estimate applied, the power feature x conj(x) (the
+        reference's "autocorrelation", `model.py:437-440`), back to time,
+        `Dense_out` and the SNR estimate."""
+        spec, k, s, b = self.spec, self.nfft, self.nsymbol, input_freq.shape[0]
         eq_freq_iq = equalize_iq(input_freq, chest_iq, spec.eq_div,
                                  spec.zf_eps, spec.zf_stopgrad_denom)
-
-        # -- the power feature x conj(x) (the reference's "autocorrelation",
-        # `model.py:437-440`) -----------------------------------------------
         feats = []
         if spec.use_corr:
             corr = cfloat.cmul_iq(eq_freq_iq, cfloat.conj_iq(eq_freq_iq))
             feats.append(self.CorrT(corr))
-
-        # -- back to time domain -------------------------------------------
         if spec.back_to_time == "ifft":
             eq_t = cfloat.idft_iq(eq_freq_iq)
         elif spec.back_to_time == "dense":
@@ -281,7 +290,6 @@ class Equalizer(nn.Module):
         else:
             eq_t = self.ToTime(eq_freq_iq)
         feats.insert(0, eq_t)
-
         out = self.Dense_out(torch.cat(feats, dim=-1).reshape(b, s, -1))
         equalized = out.reshape(b, s, n_sc, 2)
         return equalized, snr_estimate(eq_freq_iq, self.pilot_idx), chest_iq

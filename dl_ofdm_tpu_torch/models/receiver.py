@@ -16,6 +16,7 @@ from dl_ofdm_tpu_torch.models.equalizers import (EqSpec, Equalizer, dense,
 from dl_ofdm_tpu_torch.ops import cfloat
 from dl_ofdm_tpu_torch.ops.complex_ops import ComplexConv2d, ComplexDense
 from dl_ofdm_tpu_torch.ops.norms import frame_layer_norm, leaky_relu
+from dl_ofdm_tpu_torch.utils.observability import span
 
 
 class SingleGraphEqualizedRx(nn.Module):
@@ -106,10 +107,12 @@ class EqualizedReceiver(nn.Module):
 
     def forward(self, x: torch.Tensor, tp=None):
         """`tp`: a `parallel.tp.TensorParallel`, passed to both parts with
-        their keys' scopes."""
+        their keys' scopes.  The equalizer marks its own `eq.*` spans, the
+        receiver runs in a `model.forward` span."""
         eq_tp = rx_tp = None
         if tp is not None:
             eq_tp, rx_tp = tp.scope("Equalizer"), tp.scope("receiver")
         equalized, snr_db, chest = self.Equalizer(x, tp=eq_tp)
-        logits, fft_out = self.receiver(equalized, tp=rx_tp)
+        with span("model.forward"):
+            logits, fft_out = self.receiver(equalized, tp=rx_tp)
         return logits, fft_out, equalized, snr_db, chest

@@ -31,10 +31,13 @@ weights HWIO [kh, kw, C, F] (permuted to PyTorch's OIHW inside `forward`).
 Both convolutions pad as XLA does ('same' puts the odd pixel after; the
 transposed convolution dilates its input by the strides, pads by JAX's
 `_conv_transpose_padding` and does not flip the kernel), and run as
-`F.conv2d`, as the JAX package leaves them to XLA.
+`F.conv2d`, as the JAX package leaves them to XLA, in full float32: cuDNN's
+TF32 is off in the forward and in both gradients (`conv2d_float32`), as
+the port's products are (`ops/cfloat.py`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -194,6 +197,44 @@ def conv_transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv2dFloat32(torch.autograd.Function):
+    """`F.conv2d(x, w)` with cuDNN's TF32 off in the forward and in the
+    backward's products, which autograd would run later under whatever
+    setting the caller then has (`torch.backends.cudnn.allow_tf32` is True
+    by default)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _cudnn_without_tf32():
+            return F.conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _cudnn_without_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw
+
+
+def conv2d_float32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Real 2D convolution, NCHW x OIHW, stride 1, no padding, every
+    product in float32 (see the module note)."""
+    return _Conv2dFloat32.apply(x, w)
+
+
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
                 padding: str) -> torch.Tensor:
     """Real 2D convolution, NHWC x HWIO -> NHWC, stride 1, XLA's padding
@@ -206,7 +247,7 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
         xn = F.pad(xn, (l, r, t, b))
     elif padding != "VALID":
         raise ValueError(f"Invalid padding mode: {padding!r}")
-    return F.conv2d(xn, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    return conv2d_float32(xn, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
 
 
 def conv_transpose2d_nhwc(x: torch.Tensor, w: torch.Tensor, strides,
@@ -227,7 +268,7 @@ def conv_transpose2d_nhwc(x: torch.Tensor, w: torch.Tensor, strides,
     (t, bt), (l, r) = (conv_transpose_pads(kh, sh, padding),
                        conv_transpose_pads(kw, sw, padding))
     xn = F.pad(xn, (l, r, t, bt))
-    return F.conv2d(xn, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    return conv2d_float32(xn, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
 
 
 def _split_channels(x: torch.Tensor):

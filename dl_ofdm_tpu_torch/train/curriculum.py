@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from dl_ofdm_tpu_torch.utils.observability import span
+
 SNR_GRID = np.linspace(0.0, 27.0, 10, dtype=np.float32)
 SNR_PMF = np.asarray([0.01, 0.01, 0.02, 0.02, 0.02, 0.02, 0.1, 0.5, 0.2, 0.1],
                      dtype=np.float32)
@@ -41,8 +43,9 @@ def sample_snr(generator: torch.Generator, n_frames: int,
                offset_db: float = 0.0, tail: bool = False) -> torch.Tensor:
     """[n_frames] float32 SNRs in dB on the generator's device: grid points
     drawn with the pmf, plus `offset_db`.  `tail=True` takes the 0-33 dB
-    grid."""
-    grid, pmf = _grid_pmf(tail, generator.device)
-    idx = torch.multinomial(pmf, n_frames, replacement=True,
-                            generator=generator)
-    return grid[idx] + offset_db
+    grid.  The draw is the `data.snr` span."""
+    with span("data.snr"):
+        grid, pmf = _grid_pmf(tail, generator.device)
+        idx = torch.multinomial(pmf, n_frames, replacement=True,
+                                generator=generator)
+        return grid[idx] + offset_db

@@ -29,6 +29,15 @@ processes), Adam on the `Equalizer` keys' shards (each process its own)
 and the frozen receiver taking no gradient.  `fit(ckpt_dir=)` resumes as
 `Trainer.fit` does, its signature covering `freeze_rx` and
 `fused_curriculum` (`equalizer_loop.py:192-236`).
+
+`EqualizerTrainer.curriculum_steps` and `.curriculum_frames` count the
+curriculum steps taken in the process and the frames they trained (a mesh
+step's whole batch), as the kernels count their `.launches`.  The step's
+spans: the data plane's, the equalizer's own `eq.*` (its forward), the
+frozen receiver with the CE and counts under `model.forward`, the
+gradient under `model.backward`, the loss terms under `optim.loss_terms`,
+Adam under `optim.adam`; `fit`'s epoch end after the agreed read under
+`fit.epoch_end`.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from dl_ofdm_tpu_torch.train.curriculum import modulation_offset_db, sample_snr
 from dl_ofdm_tpu_torch.train.loop import (Trainer, TrainState,
                                          deterministic_cudnn)
 from dl_ofdm_tpu_torch.train.transfer import graft_pretrained, scope_mask
+from dl_ofdm_tpu_torch.utils.observability import span
 
 
 class EqualizerTrainer(Trainer):
@@ -54,6 +64,9 @@ class EqualizerTrainer(Trainer):
     `state_dict()` (`params_from_flax(load_params_npz(arm))`);
     `freeze_rx=False` trains the receiver too.  `device` defaults to
     `cuda`; `mesh` as for `Trainer`."""
+
+    curriculum_steps = 0     # `train_step_curriculum` calls, this process
+    curriculum_frames = 0    # the frames they trained
 
     def __init__(self, cfg: OFDMConfig, tc: TrainConfig,
                  channel: str = "mixRayleigh", mobile: bool = False,
@@ -114,25 +127,28 @@ class EqualizerTrainer(Trainer):
         logits, _, _, snr_est, chest = torch.func.functional_call(
             model or self.model, params, (rx_in,),
             None if tp is None else {"tp": tp})
-        ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
-        conf = M.confusion_matrix(bits, M.bit_predictions(logits))
-        aux = {}
-        if snr_db is not None:
-            # the reference's unit mismatch: a log10 estimate against dB
-            aux["snr_mse"] = torch.mean((snr_est - snr_db.reshape(-1, 1)) ** 2)
-        if h_freq is not None:
-            aux["chan_mse"] = torch.mean(
-                (frame_layer_norm(h_freq) - frame_layer_norm(chest)) ** 2)
+        with span("model.forward"):
+            ce = M.cross_entropy(logits, bits, self.tc.double_softmax)
+            conf = M.confusion_matrix(bits, M.bit_predictions(logits))
+            aux = {}
+            if snr_db is not None:
+                # the reference's unit mismatch: a log10 estimate against dB
+                aux["snr_mse"] = torch.mean(
+                    (snr_est - snr_db.reshape(-1, 1)) ** 2)
+            if h_freq is not None:
+                aux["chan_mse"] = torch.mean(
+                    (frame_layer_norm(h_freq) - frame_layer_norm(chest)) ** 2)
         return ce, conf, aux
 
     def _global_terms(self, params: dict, ce: torch.Tensor,
                       conf: torch.Tensor):
         """(CE + 1e-3 L2, metrics) from the batch's CE and counts."""
-        reg = M.l2_regularization(params)
-        log_ber, ber = M.ber_from_confusion(conf)
-        loss = ce + self._eq_reg_coeff * reg
-        aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
-               "total_loss": loss}
+        with span("optim.loss_terms"):
+            reg = M.l2_regularization(params)
+            log_ber, ber = M.ber_from_confusion(conf)
+            loss = ce + self._eq_reg_coeff * reg
+            aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
+                   "total_loss": loss}
         return loss, aux
 
     def _loss_fn(self, params: dict, bits: torch.Tensor, rx_in: torch.Tensor,
@@ -152,8 +168,9 @@ class EqualizerTrainer(Trainer):
         the data plane that `fused_curriculum` selects."""
         b, spec = self.batch_frames, self._fused_synth_spec
         if spec is not None and self.fused_curriculum:
-            bits, rx_in, noise_pwr, h_freq = fused_synthesize(
-                spec, b, generator, snr_db, want_h=True)
+            with span("data.fused_synth"):
+                bits, rx_in, noise_pwr, h_freq = fused_synthesize(
+                    spec, b, generator, snr_db, want_h=True)
         else:
             bits, rx_in, h_freq, noise_pwr, _ = self.synthesize(
                 b, snr_db, generator)
@@ -168,6 +185,8 @@ class EqualizerTrainer(Trainer):
         if snr_db is None:
             snr_db = sample_snr(generator, self.batch_frames,
                                 self._snr_offset, tail=self.tc.curriculum_tail)
+        EqualizerTrainer.curriculum_steps += 1
+        EqualizerTrainer.curriculum_frames += self.batch_frames
         if self.mesh is not None:
             if self.fused_curriculum:
                 raise ValueError("a mesh step takes the plain data plane "
@@ -184,7 +203,9 @@ class EqualizerTrainer(Trainer):
         train = [params[k].detach().requires_grad_() for k in self._trainable]
         params.update(zip(self._trainable, train))
         loss, aux = self._loss_fn(params, bits, rx_in, h_freq, snr_db)
-        grads = dict(zip(self._trainable, torch.autograd.grad(loss, train)))
+        with span("model.backward"):
+            grads = dict(zip(self._trainable,
+                             torch.autograd.grad(loss, train)))
         aux = {k: v.detach() for k, v in aux.items()}
         aux.update(loss=loss.detach(), noise_power=noise_pwr)
         return self._apply(state, grads), aux
@@ -234,16 +255,17 @@ class EqualizerTrainer(Trainer):
             # the decisions' numbers: process 0's in every process
             epoch_loss, val_ber = pd.agree(
                 [torch.stack(losses).mean(), val["ber"]], self.device)
-            history.append({"epoch": epoch, "train_loss": epoch_loss,
-                            "val_ber": val_ber})
-            log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
-                   f"val_ber={val_ber:.6f}")
-            if epoch_loss < best_loss:
-                best_loss, best_epoch = epoch_loss, epoch
-                best_params = state.params
-            if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
-                self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
-                                  best_epoch, best_params)
+            with span("fit.epoch_end"):
+                history.append({"epoch": epoch, "train_loss": epoch_loss,
+                                "val_ber": val_ber})
+                log_fn(f"epoch {epoch}: train_ce={epoch_loss:.5f} "
+                       f"val_ber={val_ber:.6f}")
+                if epoch_loss < best_loss:
+                    best_loss, best_epoch = epoch_loss, epoch
+                    best_params = state.params
+                if ckpt_dir is not None and (epoch + 1) % ckpt_every == 0:
+                    self._save_resume(ckpt_dir, state, gen, epoch, best_loss,
+                                      best_epoch, best_params)
             if epoch - tc.early_stop > best_epoch:
                 break
         state = TrainState(best_params, state.opt_state, state.step,

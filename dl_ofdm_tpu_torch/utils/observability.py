@@ -13,13 +13,22 @@ profiler's trace, on the clock of the card's kernels there, so that a gap
 on the card can be put down to what the host was doing.  The names are
 `<layer>.<part>`, one level a layer, and no span of one layer holds a span
 of another on the single-card and data-parallel paths of
-`Trainer.train_step`, `eval_step`, `eval.sweep.eval_batch` and `fit` (a
-layer's spans may nest: `gather_rows` calls `exchange`; a tp row's
-exchanges run inside its model spans):
+`Trainer.train_step`, `EqualizerTrainer.train_step_curriculum`,
+`eval_step`, `eval.sweep.eval_batch` and both `fit`s (a layer's spans may
+nest: `gather_rows` calls `exchange`; a tp row's exchanges run inside its
+model and eq spans; `eval_batch` of an equalized receiver holds its eq
+spans inside its model span):
 
   data    `tx` (bit draw, modulation), `channel`, `awgn`, `norm`
           (`Trainer.synthesize`); `fused_synth` (the fused synthesize
-          kernel and its moments)
+          kernel and its moments); `snr` (the equalizer stage's
+          curriculum SNRs, `train.curriculum.sample_snr`)
+  eq      the equalizer in front of the receiver (`models/equalizers.py`,
+          every registry id but the legacy 13): `front` (layer norm,
+          `Dense_in`, the learned DFT), `chest` (pilots, interpolation,
+          the refinement blocks' dense layers and block convolutions),
+          `equalize` (the division by the estimate, the power feature,
+          back to time, `Dense_out`, the SNR estimate)
   model   `forward` (the receiver, its CE and counts; `eval_batch`'s
           error and CE sums), `backward` (each `torch.autograd.grad`),
           `fused_grads` (the fused DCCN gradient kernel)

@@ -1,10 +1,11 @@
 """The port's spans (`dl_ofdm_tpu_torch/utils/observability.py::span`).
 
-With no profiler recording, the step, the eval, the sweep's batch and a
-one-process mesh step never reach `record_function`, and `span` hands out
-one shared null context.  Under `profile_trace` each path writes exactly
-its documented spans to `trace.json`, and no span of one layer holds a span
-of another; `fit` writes its epoch end."""
+With no profiler recording, the step, the eval, the sweep's batch, a
+one-process mesh step and the equalizer stage's step and eval never reach
+`record_function`, and `span` hands out one shared null context.  Under
+`profile_trace` each path writes exactly its documented spans to
+`trace.json`, and no span of one layer holds a span of another; both
+`fit`s write their epoch ends."""
 import collections
 import contextlib
 import json
@@ -16,12 +17,14 @@ from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
 from dl_ofdm_tpu_torch.eval import sweep
 from dl_ofdm_tpu_torch.ops.fused_synth import draw_words
 from dl_ofdm_tpu_torch.parallel import mesh as tmesh
+from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
 from dl_ofdm_tpu_torch.train.loop import Trainer
 from dl_ofdm_tpu_torch.utils import observability as obs
 
 FRAMES = 4
 DATA = {"ofdm.data.tx": 1, "ofdm.data.channel": 1, "ofdm.data.awgn": 1,
         "ofdm.data.norm": 1}
+EQ = {"ofdm.eq.front": 1, "ofdm.eq.chest": 1, "ofdm.eq.equalize": 1}
 
 
 def _trainer(mesh=None):
@@ -66,6 +69,27 @@ def _eval_batch():
     return lambda: sweep.eval_batch(tt, snr_vec, onehot, g)
 
 
+def _eq_trainer():
+    return EqualizerTrainer(OFDMConfig(nbits=1), TrainConfig(
+        batch_size=7 * FRAMES, msg_length=14 * FRAMES, opt=12,
+        curriculum_tail=True), channel="mixRayleigh", mobile=True,
+        device="cpu")
+
+
+def _eq_step():
+    tt = _eq_trainer()
+    g = torch.Generator().manual_seed(0)
+    state = tt.init_state(g)
+    return lambda: tt.train_step_curriculum(state, g)
+
+
+def _eq_eval_step():
+    tt = _eq_trainer()
+    g = torch.Generator().manual_seed(0)
+    params = tt.init_state(g).params
+    return lambda: tt.eval_step(params, g, FRAMES, _snr())
+
+
 def _mesh_step():
     tt = _trainer(tmesh.make_mesh(["cpu"] * 2, dp=2))
     g = torch.Generator().manual_seed(0)
@@ -95,9 +119,17 @@ PATHS = {
         **{k: 2 for k in DATA}, "ofdm.comm.gather_rows": 3,
         "ofdm.model.forward": 2, "ofdm.model.backward": 3,
         "ofdm.optim.loss_terms": 2, "ofdm.optim.adam": 1}),
+    # the curriculum's SNRs; the equalizer's three stages; the frozen
+    # receiver and then the CE and counts, each under model.forward
+    "eq_train_step_curriculum": (_eq_step, {
+        "ofdm.data.snr": 1, **DATA, **EQ, "ofdm.model.forward": 2,
+        "ofdm.optim.loss_terms": 1, "ofdm.model.backward": 1,
+        "ofdm.optim.adam": 1}),
+    "eq_eval_step": (_eq_eval_step, {
+        **DATA, **EQ, "ofdm.model.forward": 2, "ofdm.optim.loss_terms": 1}),
 }
 NO_PROFILER = ("train_step", "train_step_fused", "eval_step", "eval_batch",
-               "mesh_step_dp2")
+               "mesh_step_dp2", "eq_train_step_curriculum", "eq_eval_step")
 
 
 def _spans(log_dir):
@@ -172,3 +204,18 @@ def test_fit_writes_its_epoch_end(tmp_path):
     agree = sorted(s for n, s, _ in spans if n == "ofdm.comm.agree")
     ends = sorted(s for n, s, _ in spans if n == "ofdm.fit.epoch_end")
     assert all(a < e for a, e in zip(agree, ends))
+
+
+def test_equalizer_fit_writes_its_epoch_end(tmp_path):
+    tt = _eq_trainer()
+    spans = _traced(lambda: tt.fit(max_epochs=2, log_fn=lambda *a: None),
+                    tmp_path)
+    names = collections.Counter(n for n, _, _ in spans)
+    assert names["ofdm.fit.epoch_end"] == 2
+    assert names["ofdm.comm.agree"] == 2
+    # two steps an epoch, an eval_step after each, every one with its SNRs
+    assert names["ofdm.optim.adam"] == 4
+    assert names["ofdm.data.snr"] == 6
+    assert all(names[k] == 6 for k in EQ)
+    assert names["ofdm.model.forward"] == 12
+    _assert_layers_flat(spans)

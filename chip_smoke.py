@@ -288,7 +288,23 @@ Phases, each printed with its elapsed seconds:
     of each in turns K F F K; PyTorch's `torch._fused_adam_` timed beside
     them.  Alone: `cs.phase_fused_adam(dev, hbm_bps)` after
     `cuda_build.build_all()`.
- 5. (printed last) one `{"kernels": [...]}` line with all eight kernels
+29. (run after phase 28) the equalizers' block convolution
+    (`csrc/complex_conv2d.cu`): the arms' (7, 64) 'exact' convolution at 9,362
+    and 1,024 frames, the kernels' forward, input gradient, weight and bias
+    gradients against the plain versions in float64 (each error relative to the
+    largest value), one launch for the forward and the input gradient and two
+    for the weight gradient; then each pass's time from a CUDA graph beside the
+    operations bound (909,312 FLOP a frame a pass at the float32 FMA peak), the
+    plain versions' for the same three passes and cuDNN's for the same
+    convolution as one 2-channel call under `deterministic_cudnn()` with TF32
+    off (`library_ms`, never called by the port), and the layer's `F.conv2d`
+    path (four real convolutions) forward and backward; then 20 equalizer steps
+    of the benchmark's cell (opt 12, mobile mixRayleigh, 9,362 frames) twice
+    from the same seeds, bit-identical, with 4 kernel launches a step (the
+    counters set to 0 before them, so the kernels line's `launches` is these
+    steps' 160). Alone: `cs.phase_block_conv(dev, f32_flops)` after
+    `cuda_build.build_all()`.
+ 5. (printed last) one `{"kernels": [...]}` line with all nine kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
     its bf16 mode's GEMM from phases 21 and 22 beside phase 20's
@@ -298,7 +314,8 @@ Phases, each printed with its elapsed seconds:
     (`launches_legacy`, with the legacy shapes' numbers), of
     `ring_exchange` from phase 19c, with its launches across processes
     and their times from phase 26c, of `fused_adam` from phase 8 with
-    phase 28's times; `complex_dense` and
+    phase 28's times, of `complex_conv2d` from phase 29's 2 x 20 steps;
+    `complex_dense` and
     `fir_shift_accum` with `launches_multiprocess` from phase 26;
     `complex_dense` and
     `pack_stacked_weight` with `launches_tp` from phases 25a-b and the tp
@@ -1173,6 +1190,200 @@ def phase_fused_adam(dev, hbm_bps) -> dict:
                       "order": "K F F K, 200 steps each"}), flush=True)
     log(f"fused 1,024-frame step: kernel {step_ms['kernel']} ms, foreach "
         f"path {step_ms['foreach']} ms")
+    return result
+
+
+BLOCK_CONV = (7, 64)          # the arms' block conv: kernel = map (S, K)
+
+
+def block_conv_case(dev, frames: int, seed: int):
+    """The arms' one-channel (7, 64) 'exact' layer on the card with every
+    parameter drawn (biases too), and x, g [frames, 7, 64, 2]."""
+    import torch
+    from dl_ofdm_tpu_torch.ops.complex_ops import ComplexConv2d
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layer = ComplexConv2d(1, 1, BLOCK_CONV, padding="same").to(dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, device=dev, generator=gen) * 0.05)
+    x, g = (torch.randn(frames, *BLOCK_CONV, 2, device=dev, generator=gen)
+            for _ in range(2))
+    return layer, x, g
+
+
+def phase_block_conv(dev, f32_flops) -> dict:
+    """Phase 29: the block convolution's kernels against the plain
+    versions in float64, their times beside the bound, the plain
+    version's and cuDNN's, and 20 equalizer steps twice, bit-identical
+    (see the module note)."""
+    import torch
+    import torch.nn.functional as F
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
+    from dl_ofdm_tpu_torch.ops import complex_ops as tco
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    from dl_ofdm_tpu_torch.train.loop import deterministic_cudnn
+    kern = cc.complex_conv2d_kernel
+    s, k = BLOCK_CONV
+    pt, pl = (s - 1) // 2, (k - 1) // 2
+    flops = 8 * 37 * 3072                     # a frame a pass, in reach
+    result = {"shapes": {}}
+    for frames, seed in ((9362, 29), (1024, 30)):
+        layer, x, g = block_conv_case(dev, frames, seed)
+        w, b = layer.tap_weight().detach(), layer.tap_bias().detach()
+        n0 = (kern.launches_fwd, kern.launches_dgrad, kern.launches_wgrad)
+        with torch.no_grad():
+            y = cc.complex_conv2d_kernel(x, w, b)
+            dx = cc.complex_conv2d_kernel(g, w, flip=True)
+            dw, db = cc.complex_conv2d_wgrad_kernel(x, g, s, k)
+        torch.cuda.synchronize()
+        counts = (kern.launches_fwd - n0[0], kern.launches_dgrad - n0[1],
+                  kern.launches_wgrad - n0[2])
+        if counts != (1, 1, 2):
+            raise AssertionError(f"complex_conv2d launches {counts}")
+        x64, g64, w64, b64 = (t.double() for t in (x, g, w, b))
+        want = {"y": cc.complex_conv2d_ref(x64, w64, b64),
+                "dx": cc.complex_conv2d_ref(g64, w64, flip=True)}
+        want["dw"], want["db"] = cc.complex_conv2d_wgrad_ref(x64, g64, s, k)
+        got = {"y": y, "dx": dx, "dw": dw, "db": db}
+        errs = {n: float((got[n].double() - v).abs().max()
+                         / v.abs().max()) for n, v in want.items()}
+        del want, x64, g64
+        # float32 sums of ~250 products an output, and of ~4,000 a lane
+        # in the weight gradient's partials
+        tol = {"y": 1e-5, "dx": 1e-5, "dw": 1e-4, "db": 1e-4}
+        bad = {n: e for n, e in errs.items() if not e <= tol[n]}
+        if bad:
+            raise AssertionError(f"complex_conv2d at {frames} frames: "
+                                 f"relative errors {bad} above {tol}")
+        log(f"complex_conv2d (7, 64) at {frames} frames: kernels against "
+            f"float64 plain versions, largest errors relative to the "
+            f"largest value {errs}")
+
+        # cuDNN: the same convolution as one 2-channel call, TF32 off
+        xp = F.pad(x.permute(0, 3, 1, 2), (pl, k - 1 - pl, pt, s - 1 - pt))
+        gn = g.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        aten_bwd = torch.ops.aten.convolution_backward
+
+        def lib(mask):
+            return lambda: aten_bwd(gn, xp, w_oihw, [2], [1, 1], [0, 0],
+                                    [1, 1], False, [0, 0], 1, mask)
+
+        # the layer's F.conv2d path (four real convolutions), forward and
+        # backward, as the port ran it on the card before the kernels
+        xr_, xi_ = (x[..., c:c + 1].detach().requires_grad_()
+                    for c in (0, 1))
+
+        def old_path():
+            yr, yi = layer._recombine(
+                lambda v, w_: tco.conv2d_nhwc(v, w_, "same"), xr_, xi_)
+            torch.autograd.backward([yr, yi], [g[..., :1], g[..., 1:]])
+
+        runs = {
+            "forward": lambda: cc.complex_conv2d_kernel(x, w, b),
+            "input_grad": lambda: cc.complex_conv2d_kernel(g, w, flip=True),
+            "weight_grad": lambda: cc.complex_conv2d_wgrad_kernel(x, g, s,
+                                                                   k),
+            "plain_forward": lambda: cc.complex_conv2d_ref(x, w, b),
+            "plain_input_grad": lambda: cc.complex_conv2d_ref(g, w,
+                                                              flip=True),
+            "plain_weight_grad": lambda: cc.complex_conv2d_wgrad_ref(x, g, s,
+                                                                     k),
+            "library_forward": lambda: F.conv2d(xp, w_oihw, b),
+            "library_input_grad": lib([True, False, False]),
+            "library_weight_grad": lib([False, True, True])}
+        times = {n: [] for n in runs}
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with deterministic_cudnn(), torch.no_grad():
+                for order in (list(runs), list(runs)[::-1]):
+                    for n in order:
+                        iters = 2 if n.startswith("plain") else 20
+                        times[n].append(time_ms(runs[n], iters))
+            with deterministic_cudnn():
+                for _ in range(2):
+                    old_path()
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(5):
+                    old_path()
+                t1.record()
+                torch.cuda.synchronize()
+                old_ms = t0.elapsed_time(t1) / 5
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        ms = {n: sum(t[0] for t in v) / len(v) for n, v in times.items()}
+        eager = {n: sum(t[1] for t in v) / len(v) for n, v in times.items()}
+        bound_ms = flops * frames / f32_flops * 1e3
+        passes = ("forward", "input_grad", "weight_grad")
+        line = {"frames": frames, "max_rel_err_vs_float64": errs,
+                "kernel_ms": {p: ms[p] for p in passes},
+                "kernel_ms_total": sum(ms[p] for p in passes),
+                "roofline_pct": {p: 100 * bound_ms / ms[p] for p in passes},
+                "bound_ms_a_pass": bound_ms, "bound_by": "operations",
+                "plain_ms": {p: ms["plain_" + p] for p in passes},
+                "plain_ms_total": sum(ms["plain_" + p] for p in passes),
+                "library_ms": {p: ms["library_" + p] for p in passes},
+                "library_ms_total": sum(ms["library_" + p] for p in passes),
+                "conv2d_nhwc_path_fwd_bwd_ms": old_ms,
+                "eager_ms": eager, "timing": "CUDA graph of 20 calls (the "
+                "plain version 2), in turns; the F.conv2d path eager, CUDA "
+                "events over 5", "launches": list(counts)}
+        result["shapes"][frames] = line
+        print(json.dumps({"phase": 29, "kernel": "complex_conv2d", **line}),
+              flush=True)
+        log(f"complex_conv2d at {frames} frames: forward "
+            f"{ms['forward']:.4f} ms, input gradient {ms['input_grad']:.4f}"
+            f", weight gradient {ms['weight_grad']:.4f} (bound "
+            f"{bound_ms:.4f} ms a pass); cuDNN {line['library_ms']}; the "
+            f"F.conv2d path forward and backward {old_ms:.3f} ms; plain "
+            f"versions {line['plain_ms']}")
+        del layer, x, g, xp, gn, xr_, xi_
+        torch.cuda.empty_cache()
+
+    # 20 steps of the benchmark's equalizer cell, twice from the same seeds
+    def steps():
+        tr = EqualizerTrainer(OFDMConfig(nbits=1), TrainConfig(
+            opt=12, batch_size=9362 * 7, curriculum_tail=True),
+            channel="mixRayleigh", mobile=True)
+        gen = torch.Generator(device=dev).manual_seed(2929)
+        state = tr.init_state(gen)
+        out = []
+        for _ in range(20):
+            state, _ = tr.train_step_curriculum(state, gen)
+            out.append(state)
+        torch.cuda.synchronize()
+        return out
+
+    kern.launches = kern.launches_fwd = 0
+    kern.launches_dgrad = kern.launches_wgrad = 0
+    runs = [steps(), steps()]
+    per_step = kern.launches / 40
+    if per_step != 4:
+        raise AssertionError(f"complex_conv2d launches a step {per_step}")
+    differ = [(i, k_) for i, (a, b) in enumerate(zip(*runs))
+              for k_ in a.params if not torch.equal(a.params[k_],
+                                                    b.params[k_])]
+    differ += [(i, k_) for i, (a, b) in enumerate(zip(*runs))
+               for part in ("mu", "nu") for k_ in a.opt_state[part]
+               if not torch.equal(a.opt_state[part][k_],
+                                  b.opt_state[part][k_])]
+    if differ:
+        raise AssertionError(f"equalizer steps differ at {differ[:5]}")
+    result["steps_bit_identical"] = 20
+    result["launches"] = kern.launches
+    result["launches_by_pass"] = {"forward": kern.launches_fwd,
+                                  "input_grad": kern.launches_dgrad,
+                                  "weight_grad": kern.launches_wgrad}
+    print(json.dumps({"phase": 29, "equalizer_steps_bit_identical": 20,
+                      "launches_a_step": per_step}), flush=True)
+    log("20 equalizer steps (opt 12, mobile mixRayleigh, 9,362 frames) "
+        "twice from the same seeds: parameters and both moments "
+        "bit-identical; 4 complex_conv2d launches a step")
     return result
 
 
@@ -4861,6 +5072,7 @@ def main() -> None:
     model = phase_model(tfm, tfs, synth["planes"], dev, hbm_bps, f32_flops)
     launches_train = phase_train(tfm, tfs, dev)
     adam = phase_fused_adam(dev, hbm_bps)
+    conv = phase_block_conv(dev, f32_flops)
 
     # -- 9-12. the mobile training path, long frames, the probe ---------------
     mobile = phase_synth_mobile(tfs, dev, hbm_bps, f32_flops)
@@ -4985,6 +5197,20 @@ def main() -> None:
         "foreach_ms": big_set["foreach_ms"],
         "leaf_sets": adam["leaf_sets"],
         "fused_step_1k_ms": adam["step_ms"], "check": "pass"})
+    conv_9k = conv["shapes"][9362]
+    kernels.append({
+        "name": "complex_conv2d", "route": "cuda",
+        "source": "dl_ofdm_tpu_torch/csrc/complex_conv2d.cu",
+        "replaces": "none: XLA's conv on the TPU (cuDNN on the card)",
+        "launches": conv["launches"], "ms": conv_9k["kernel_ms_total"],
+        "bound_ms": 3 * conv_9k["bound_ms_a_pass"],
+        "bound_by": "operations",
+        "launches_by_pass": conv["launches_by_pass"],
+        "plain_ms": conv_9k["plain_ms_total"],
+        "library_ms": conv_9k["library_ms_total"],
+        "shapes": conv["shapes"],
+        "steps_bit_identical": conv["steps_bit_identical"],
+        "check": "pass"})
     kernels.insert(1, {
         "name": "pack_stacked_weight", "route": "cuda",
         "source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",

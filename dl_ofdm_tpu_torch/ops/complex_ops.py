@@ -30,10 +30,18 @@ keys one to one: dense weights [K, F] (vector [2K, 2F]), convolution
 weights HWIO [kh, kw, C, F] (permuted to PyTorch's OIHW inside `forward`).
 Both convolutions pad as XLA does ('same' puts the odd pixel after; the
 transposed convolution dilates its input by the strides, pads by JAX's
-`_conv_transpose_padding` and does not flip the kernel), and run as
-`F.conv2d`, as the JAX package leaves them to XLA, in full float32: cuDNN's
+`_conv_transpose_padding` and does not flip the kernel).  A
+`ComplexConv2d` of one channel in and one out with 'same' padding (the
+equalizers' block, cascade and refinement convolutions) runs on a CUDA
+device through the hand-written kernels of `ops/complex_conv2d.py`
+(forward, input gradient, a deterministic weight gradient), fed the one
+real 2-in/2-out tap a position that every mode comes to (`tap_weight`,
+`tap_bias`); on the CPU, and for every other convolution (more channels,
+'valid', the transposed one), the layers run as `F.conv2d`, as the JAX
+package leaves them to XLA.  Both paths compute in full float32: cuDNN's
 TF32 is off in the forward and in both gradients (`conv2d_float32`), as
-the port's products are (`ops/cfloat.py`).
+the port's products are (`ops/cfloat.py`), and the kernels use the CUDA
+cores' float32 FMA.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from torch import nn
 from dl_ofdm_tpu_torch.ops.cfloat import (  # noqa: F401
     cmul_iq as complex_mul, from_complex as complex_to_iq,
     to_complex as iq_to_complex)
+from dl_ofdm_tpu_torch.ops.complex_conv2d import complex_conv2d, same_pads
 from dl_ofdm_tpu_torch.ops.pallas_kernels import (bf16_round, complex_dense,
                                                   is_bf16)
 
@@ -176,14 +185,6 @@ class ComplexDense(_ComplexLayer):
         return torch.stack([yr, yi], dim=-1)
 
 
-def same_pads(size: int, k: int, stride: int = 1) -> tuple[int, int]:
-    """XLA's 'SAME' padding of one axis: (before, after), the odd pixel
-    after (`jax.lax.padtype_to_pads`)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def conv_transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
     """JAX's `_conv_transpose_padding` for one axis: (before, after)."""
     if padding == "SAME":
@@ -292,7 +293,39 @@ class ComplexConv2d(_ComplexLayer):
         self._make(mode, recombine, use_bias,
                    (*self.kernel, in_channels, features), features)
 
+    def tap_weight(self) -> torch.Tensor:
+        """[kh, kw, 2, 2]: each position's real map of (re, im) in to
+        (re, im) out, W[a, b, ci, co], of a one-channel layer."""
+        if self.mode == "vector":
+            return self.w
+        wr, wi = self.wr[:, :, 0, 0], self.wi[:, :, 0, 0]
+        zero = torch.zeros_like(wr)
+        if self.mode == "streams":
+            rows = ((wr, zero), (zero, wi))
+        elif self.recombine == "true":
+            rows = ((wr, wi), (-wi, wr))
+        else:
+            rows = ((wr, wi), (-wi, -wr))
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    def tap_bias(self) -> torch.Tensor | None:
+        """[2]: the bias of the re and im outputs, or None."""
+        if not self.use_bias:
+            return None
+        if self.mode == "vector":
+            return self.b
+        if self._biases == ("b",):
+            return torch.cat([self.b, -self.b])
+        return torch.cat([self.br, self.bi])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        vector = self.mode == "vector"
+        one = (self.w if vector else self.wr).shape[2:] == (
+            (2, 2) if vector else (1, 1))
+        if x.is_cuda and one and self.padding.upper() == "SAME":
+            y = complex_conv2d(x.reshape(*x.shape[:3], 2), self.tap_weight(),
+                               self.tap_bias())
+            return y.reshape(x.shape)
         xr, xi, squeeze = _split_channels(x)
         yr, yi = self._recombine(
             lambda v, w: conv2d_nhwc(v, w, self.padding), xr, xi)

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source under csrc/
-SOURCES = {"complex_dense": "complex_dense.cu",
+SOURCES = {"complex_conv2d": "complex_conv2d.cu",
+           "complex_dense": "complex_dense.cu",
            "complex_dense_bf16": "complex_dense_bf16.cu",
            "fused_synth": "fused_synth.cu",
            "fused_model": "fused_model.cu",

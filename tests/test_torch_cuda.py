@@ -5,6 +5,7 @@ without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (`--noconftest`: `tests/conftest.py` imports JAX.)"""
+import copy
 import os
 
 import pytest
@@ -680,6 +681,143 @@ def test_equalizer_step_on_card(cuda):
         assert torch.equal(state.params[k], v), k
     assert set(state.opt_state["mu"]) == {
         k for k in state.params if k.startswith("Equalizer.")}
+
+
+CONV_MODES = [("exact", "true"), ("exact", "reference"), ("vector", "true"),
+              ("streams", "true")]
+
+
+def _conv_layer(cuda, kernel, mode, recombine, seed):
+    from dl_ofdm_tpu_torch.ops.complex_ops import ComplexConv2d
+    layer = ComplexConv2d(1, 1, kernel, padding="same", mode=mode,
+                          recombine=recombine).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, device=cuda, generator=g))
+    return layer, g
+
+
+@pytest.mark.parametrize("mode,recombine", CONV_MODES)
+@pytest.mark.parametrize("b,hw,kernel", [(37, (7, 64), (7, 64)),
+                                         (9362, (7, 64), (7, 64)),
+                                         (37, (1, 16), (1, 16)),
+                                         (73, (5, 12), (3, 5))])
+def test_complex_conv2d_kernels_match_plain_version(cuda, b, hw, kernel,
+                                                    mode, recombine):
+    """The layer on the card (the kernels: forward, input gradient, weight
+    and bias gradients) against the plain versions in float64 on the card,
+    each error relative to the largest value (float32 sums of up to ~250
+    products an output, ~4,000 a lane in the weight gradient); one launch
+    each for the forward and the input gradient, two for the weight
+    gradient."""
+    from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
+    layer, g = _conv_layer(cuda, kernel, mode, recombine, b)
+    x = torch.randn(b, *hw, 1, 2, device=cuda, generator=g)
+    gy = torch.randn(b, *hw, 1, 2, device=cuda, generator=g)
+    x.requires_grad_()
+    k = cc.complex_conv2d_kernel
+    n0 = (k.launches_fwd, k.launches_dgrad, k.launches_wgrad)
+    y = layer(x)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (k.launches_fwd - n0[0], k.launches_dgrad - n0[1],
+            k.launches_wgrad - n0[2]) == (1, 1, 2)
+    params = dict(layer.named_parameters())
+    layer64 = copy.deepcopy(layer).double()
+    p64 = dict(layer64.named_parameters())
+    taps, bias = layer64.tap_weight(), layer64.tap_bias()
+    x64 = x.detach().double().reshape(b, *hw, 2)
+    g64 = gy.double().reshape(b, *hw, 2)
+    want_y = cc.complex_conv2d_ref(x64, taps.detach(), None if bias is None
+                                   else bias.detach())
+    want_dx = cc.complex_conv2d_ref(g64, taps.detach(), flip=True)
+    dw, db = cc.complex_conv2d_wgrad_ref(x64, g64, *kernel)
+    outs = [taps] + ([bias] if bias is not None else [])
+    grads = [dw] + ([db] if bias is not None else [])
+    want_p = dict(zip(p64, torch.autograd.grad(outs, list(p64.values()),
+                                               grads)))
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+
+    assert rel(y.reshape(want_y.shape), want_y) <= 1e-5
+    assert rel(x.grad.reshape(want_dx.shape), want_dx) <= 1e-5
+    for n, p in params.items():
+        assert rel(p.grad, want_p[n]) <= 1e-4, n
+
+
+def test_complex_conv2d_backward_repeats_bit_for_bit(cuda):
+    """Two backward passes at 9,362 frames: the same dx, dW and db bits
+    (no float atomics; each block's frames and the blocks' sum in fixed
+    orders)."""
+    from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
+    layer, g = _conv_layer(cuda, (7, 64), "exact", "true", 5)
+    w, bias = layer.tap_weight().detach(), layer.tap_bias().detach()
+    x = torch.randn(9362, 7, 64, 2, device=cuda, generator=g)
+    gy = torch.randn(9362, 7, 64, 2, device=cuda, generator=g)
+    runs = [(cc.complex_conv2d_kernel(gy, w, flip=True),
+             *cc.complex_conv2d_wgrad_kernel(x, gy, 7, 64))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert runs[0][2].shape == (2,)
+    y = [cc.complex_conv2d_kernel(x, w, bias) for _ in range(2)]
+    assert torch.equal(*y)
+
+
+def test_complex_conv2d_kernels_reject_bad_input(cuda):
+    from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
+    x = torch.randn(4, 7, 64, 2, device=cuda)
+    w = torch.randn(7, 64, 2, 2, device=cuda)
+    with pytest.raises(TypeError):
+        cc.complex_conv2d_kernel(x.double(), w.double())
+    with pytest.raises(ValueError):             # more rows than MAX_S
+        cc.complex_conv2d_kernel(torch.randn(4, 9, 64, 2, device=cuda), w)
+    with pytest.raises(ValueError):             # not contiguous
+        cc.complex_conv2d_kernel(x.transpose(1, 2), w)
+    with pytest.raises(ValueError):             # not IQ-last
+        cc.complex_conv2d_kernel(x[..., :1].contiguous(), w)
+    with pytest.raises(ValueError):             # taps not [kh, kw, 2, 2]
+        cc.complex_conv2d_kernel(x, w[..., :1].contiguous())
+    with pytest.raises(ValueError):             # taps on the CPU
+        cc.complex_conv2d_kernel(x, w.cpu())
+    with pytest.raises(ValueError):             # too wide for shared memory
+        cc.complex_conv2d_kernel(torch.randn(2, 7, 4096, 2, device=cuda),
+                                 torch.randn(7, 4096, 2, 2, device=cuda))
+    with pytest.raises(ValueError):             # maps of two shapes
+        cc.complex_conv2d_wgrad_kernel(x, x[:2].contiguous(), 7, 64)
+    with pytest.raises(TypeError):              # the layer in float64
+        from dl_ofdm_tpu_torch.ops.complex_ops import ComplexConv2d
+        ComplexConv2d(1, 1, (7, 64)).to(cuda).double()(x.double())
+
+
+def test_equalizer_step_launches_the_block_conv_kernels(cuda):
+    """One curriculum step of the opt-12 equalizer on the card: its block
+    conv's forward, input gradient and weight gradient through the kernels
+    (4 launches), none through cuDNN's convolutions."""
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
+    from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
+    tr = EqualizerTrainer(OFDMConfig(nbits=1), TrainConfig(
+        snr=10.0, batch_size=7 * 73, opt=12), channel="mixRayleigh")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = tr.init_state(g)
+    k = cc.complex_conv2d_kernel
+    n0 = (k.launches, k.launches_fwd, k.launches_dgrad, k.launches_wgrad)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, aux = tr.train_step_curriculum(state, g)
+        torch.cuda.synchronize()
+    assert (k.launches - n0[0], k.launches_fwd - n0[1],
+            k.launches_dgrad - n0[2], k.launches_wgrad - n0[3]) == (
+                4, 1, 1, 2)
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if any(
+        c in n for c in ("wgrad2d", "dgrad2d", "regular_fft", "gemmk1"))]
+    assert any("complex_conv2d_wgrad_kernel" in n for n in names), names
 
 
 def _ring_slices(devs, b, hl, hr, l, seed):

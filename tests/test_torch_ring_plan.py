@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dl_ofdm_tpu_torch.ops import complex_conv2d as cc
 from dl_ofdm_tpu_torch.ops import cuda_build
 from dl_ofdm_tpu_torch.ops import fused_adam as fa
 from dl_ofdm_tpu_torch.ops import prng_probe as pp
@@ -237,7 +238,9 @@ def _same_type(ct, ctype: str, structs: dict) -> bool:
     ("ring_exchange.cu", "RingArgs", halo._RingArgs),
     ("philox_probe.cu", "ProbeArgs", pp._ProbeArgs),
     ("fused_adam.cu", "AdamLeaf", fa._AdamLeaf),
-    ("fused_adam.cu", "AdamArgs", fa._AdamArgs)])
+    ("fused_adam.cu", "AdamArgs", fa._AdamArgs),
+    ("complex_conv2d.cu", "ConvArgs", cc._ConvArgs),
+    ("complex_conv2d.cu", "WgradArgs", cc._WgradArgs)])
 def test_ctypes_structs_match_their_c_structs(source, name, cls):
     structs = {"RingSide": halo._RingSide, "AdamLeaf": fa._AdamLeaf}
     fields = _c_struct(source, name)

@@ -284,9 +284,9 @@ Phases, each printed with its elapsed seconds:
     (28 bytes a value) and the `_foreach_*` path's (`Adam.update` and the
     parameter add); then the fused 1,024-frame step, 20 steps with the
     kernel bit-identical to 20 on the foreach path (forced in this
-    process by turning off a second trainer's `Adam.fused`), and ms/step
-    of each in turns K F F K; PyTorch's `torch._fused_adam_` timed beside
-    them.  Alone: `cs.phase_fused_adam(dev, hbm_bps)` after
+    process by turning off a second trainer's `Adam._kernel_leaves`), and
+    ms/step of each in turns K F F K; PyTorch's `torch._fused_adam_` timed
+    beside them.  Alone: `cs.phase_fused_adam(dev, hbm_bps)` after
     `cuda_build.build_all()`.
 29. (run after phase 28) the equalizers' block convolution
     (`csrc/complex_conv2d.cu`): the arms' (7, 64) 'exact' convolution at 9,362
@@ -1037,8 +1037,9 @@ def phase_fused_adam(dev, hbm_bps) -> dict:
     PyTorch's `torch._fused_adam_`'s (with and without the copies that
     keep the input state whole; its parameters against the plain
     version's); then the fused 1,024-frame step with the kernel and with
-    the foreach path (a second trainer whose optimizer's `fused` is
-    turned off): 20 steps bit-identical, and ms/step in turns K F F K."""
+    the foreach path (a second trainer whose optimizer's
+    `_kernel_leaves` is turned off): 20 steps bit-identical, and ms/step
+    in turns K F F K."""
     import torch
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
     from dl_ofdm_tpu_torch.models.dccn import DCCNReceiver
@@ -1143,7 +1144,7 @@ def phase_fused_adam(dev, hbm_bps) -> dict:
     # the fused 1k step with the kernel and with the foreach path
     trs = [Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 1024),
                    channel="ETU") for _ in range(2)]
-    trs[1].optimizer.fused = lambda *a, **k: None
+    trs[1].optimizer._kernel_leaves = lambda *a, **k: None
     snr = torch.full((1024,), 5.0, device=dev)
     init = trs[0].init_state(torch.Generator(device=dev).manual_seed(0))
 

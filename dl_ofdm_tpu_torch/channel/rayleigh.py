@@ -12,7 +12,8 @@ Port of `dl_ofdm_tpu/channel/rayleigh.py:58-206` (reference
   * mixes: 'mixRayleigh' cycles frames over {flat, etu, eva, epa} and
     'mixAll' over {awgn, flat, etu, eva, epa}; AWGN rows pass through with
     a unit tap; with `mix` on, Doppler applies to every 3rd (resp. 4th)
-    frame.
+    frame.  `frame_layout()` hands that layout to the fused synthesize
+    chain (`ops.fused_synth.synth_spec_for`).
 
 `_partition_doppler = True` (off by default, `rayleigh.py:172-196`) takes
 JAX's partitioned path where mixRayleigh's Doppler mask is exactly every
@@ -41,6 +42,10 @@ from dl_ofdm_tpu_torch.ops import cfloat
 class ChannelOut:
     y: torch.Tensor        # [B, S, n_sc, 2] received IQ waveform
     h_freq: torch.Tensor   # [B, S, nfft, 2] ground-truth channel DFT (IQ)
+
+
+# a mix's Doppler frames: every 3rd of mixRayleigh, every 4th of mixAll
+_DOPPLER_EVERY = {"mixrayleigh": 3, "mixall": 4}
 
 
 def _pad_to(a: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
@@ -104,13 +109,27 @@ class RayleighChannel:
         if not self.mobile:
             return np.zeros(n_frames, dtype=bool)
         fd = self._fd_np[prof_idx]
-        if self.channel == "mixrayleigh":
-            sel = (np.arange(n_frames) % 3 == 0) & self.mix
-        elif self.channel == "mixall":
-            sel = (np.arange(n_frames) % 4 == 0) & self.mix
-        else:
-            sel = np.ones(n_frames, dtype=bool)
+        every = _DOPPLER_EVERY.get(self.channel)
+        sel = (np.ones(n_frames, dtype=bool) if every is None
+               else (np.arange(n_frames) % every == 0) & self.mix)
         return sel & (fd > 0.1)
+
+    def frame_layout(self):
+        """What the fused synthesize chain needs of the frames
+        (`ops.fused_synth.synth_spec_for`): (the profile classes, frame i
+        taking class i % P, None for a passthrough class; each class's
+        Doppler shift in Hz; one period of `_frame_doppler_mask`, frame i
+        taking the Doppler path iff entry i % C is on), the last two None
+        where no frame takes the Doppler path.  C = lcm(P, 3|4) covers
+        both cycles."""
+        profiles = [None if pt else p
+                    for pt, p in zip(self._passthrough, self.profiles)]
+        if not self.has_doppler:
+            return profiles, None, None
+        period = math.lcm(len(self.profiles),
+                          _DOPPLER_EVERY.get(self.channel, 1))
+        return (profiles, self._fd_np, self._frame_doppler_mask(
+            period, self._frame_profiles(period)))
 
     def __call__(self, tx: torch.Tensor,
                  generator: torch.Generator | None = None,

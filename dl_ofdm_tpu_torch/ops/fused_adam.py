@@ -10,7 +10,9 @@ scalars.  No TPU kernel stands behind it: optax's update is XLA's to fuse.
     `AdamLayout` (made once a leaf set and cached by its caller); it counts
     its launches in `fused_adam_kernel.launches`;
   * `fused_adam_ref` is its plain version, the same arithmetic in PyTorch
-    operations: the reference the tests hold the kernel to;
+    operations: the reference the tests hold the kernel to; its L2 term
+    and loss scalars, `l2_fold`, are also those of `train.loop.Adam.step`
+    where the kernel does not take the leaves;
   * `AdamLayout.of` decides from the leaves alone whether the kernel takes
     them: float32 tensors on one CUDA device, parameters and moments
     contiguous, each gradient contiguous or a strided view of at most two
@@ -84,25 +86,34 @@ class AdamStep(NamedTuple):
     grads: list | None
 
 
+def l2_fold(keys, ws, gs, conf, ce, reg_coeff: float):
+    """The fused step's L2 term in PyTorch operations: (the gradients, the
+    `DENSE` leaves' with the L2 term's gradient added
+    (`fused_model.reg_grads`), and the loss scalars `SCALARS`) from the
+    int64 2x2 counts `conf` and the mean CE `ce`.  The kernel folds the
+    same in its launch; `fused_adam_ref` and `train.loop.Adam.step`'s
+    plain path fold with this."""
+    # here, not at the top: `train` imports this module
+    from dl_ofdm_tpu_torch.train import metrics as M
+    log_ber, ber = M.ber_from_confusion(conf)
+    factor = ber * (reg_coeff * 2.0 * L2_SCALE)
+    gs = [g + w * factor if DENSE in k else g
+          for k, w, g in zip(keys, ws, gs)]
+    reg = M.l2_regularization(dict(zip(keys, ws)), L2_SCALE, DENSE)
+    loss = ce + ber * reg_coeff * reg
+    return gs, dict(zip(SCALARS, (reg, ber, log_ber, loss, loss + log_ber)))
+
+
 def fused_adam_ref(keys, ws, gs, mus, nus, hp: AdamHyper, conf=None,
                    ce=None, reg_coeff: float = 0.0,
                    return_grads: bool = False) -> AdamStep:
     """The kernel's arithmetic in PyTorch operations, on any device.  With
     `conf` (int64 2x2 counts) and `ce`, the `DENSE` leaves' gradients take
-    the L2 term (`fused_model.reg_grads`) and the loss scalars are those of
-    the fused step."""
-    # here, not at the top: `train` imports this module
-    from dl_ofdm_tpu_torch.train import metrics as M
+    the L2 term and the loss scalars are those of the fused step
+    (`l2_fold`)."""
     scalars = None
     if conf is not None:
-        log_ber, ber = M.ber_from_confusion(conf)
-        factor = ber * (reg_coeff * 2.0 * L2_SCALE)
-        gs = [g + w * factor if DENSE in k else g
-              for k, w, g in zip(keys, ws, gs)]
-        reg = M.l2_regularization(dict(zip(keys, ws)), L2_SCALE, DENSE)
-        loss = ce + ber * reg_coeff * reg
-        scalars = dict(zip(SCALARS, (reg, ber, log_ber, loss,
-                                     loss + log_ber)))
+        gs, scalars = l2_fold(keys, ws, gs, conf, ce, reg_coeff)
     # divisions by Python numbers, as the foreach path's: on the CPU a
     # division, on a card a product with the reciprocal (`kernel_floats`)
     b1, omb1, b2, omb2, c1, c2, eps, neg_lr = hp.floats()

@@ -53,6 +53,11 @@ from dl_ofdm_tpu_torch.ops import cuda_build
 
 _SQRT_HALF = float(np.sqrt(0.5))
 
+# the plans the kernel takes: at most 16-QAM, the [frame_size, sps] TX
+# operator pair within 2 MiB
+MAX_NBITS = 4
+TX_OP_MAX_BYTES = 2 * 2**20
+
 # Philox streams (see the module docstring)
 (STREAM_IDX, STREAM_TAP1, STREAM_TAP2, STREAM_NOISE1, STREAM_NOISE2,
  STREAM_JAKES1, STREAM_JAKES2) = range(7)
@@ -118,7 +123,7 @@ def build_synth_spec(plan: SubcarrierPlan, profiles=None, nbits: int = 1,
 
     Doppler: `fd` [P] is the Doppler shift of each profile class (Hz) and
     `dop_cycle` the static cycle of frames that take the Jakes path
-    (`RayleighChannel._frame_doppler_mask` over one period)."""
+    (`RayleighChannel.frame_layout`)."""
     counts, w_sym_r, w_sym_i, bias = _symbol_tx_operator(plan)
     w_r = np.concatenate([w_sym_r[s, :c] for s, c in enumerate(counts)])
     w_i = np.concatenate([w_sym_i[s, :c] for s, c in enumerate(counts)])
@@ -173,6 +178,20 @@ def build_synth_spec(plan: SubcarrierPlan, profiles=None, nbits: int = 1,
         alpha_cls=alpha, gbias_cls=gbias, hb_r=hb_r, hb_i=hb_i,
         hbias_cls=hbias, t_sym=plan.samples_per_symbol / plan.sample_rate,
         **dop)
+
+
+def synth_spec_for(plan: SubcarrierPlan, channel, nbits: int):
+    """The spec of `channel`'s frames (a `channel.rayleigh.RayleighChannel`,
+    its `frame_layout`), or None where the kernel does not take the plan
+    (`loop.py:113-143`): more than MAX_NBITS bits a symbol, a TX operator
+    over TX_OP_MAX_BYTES, or an OFDM symbol without data subcarriers
+    (block pilots)."""
+    tx_op_bytes = 2 * 4 * plan.frame_size * plan.samples_per_symbol
+    counts = np.bincount(plan.data_sc // plan.nfft, minlength=plan.nsymbol)
+    if nbits > MAX_NBITS or tx_op_bytes > TX_OP_MAX_BYTES or counts.min() == 0:
+        return None
+    profiles, fd, dop_cycle = channel.frame_layout()
+    return build_synth_spec(plan, profiles, nbits, fd=fd, dop_cycle=dop_cycle)
 
 
 # ---------------------------------------------------------------------------

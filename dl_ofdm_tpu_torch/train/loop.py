@@ -20,12 +20,13 @@ fused route).
     kernel's normalized output (or on `synthesize` where the fused chain
     does not apply).
 
-On every route (and on a mesh with tp = 1) the L2 fold, Adam and the
-parameter write are one launch of the optimizer kernel
-(`ops/fused_adam.py`, `Adam.fused`) wherever the leaves are float32 on one
-card and `grad_clip` is 0; with clipping, on a tp mesh's shard lists and
-on the CPU `Adam.update`'s `_foreach_*` path takes the step, with the same
-float32 arithmetic.
+Every route takes its optimizer step through `Adam.step`, which chooses
+its path from the leaves: one launch of the optimizer kernel
+(`ops/fused_adam.py`: the L2 fold, Adam and the parameter write) wherever
+the leaves are float32 on one card and `grad_clip` is 0 (on every route,
+and on a mesh with tp = 1); with clipping, on a tp mesh's shard lists and
+on the CPU `fused_adam.l2_fold` and `Adam.update`'s `_foreach_*` path,
+with the same float32 arithmetic.
 
 Parameters live in a `TrainState` as a dict keyed as the model's
 `state_dict()`; the model module only supplies the forward function
@@ -82,7 +83,6 @@ import inspect
 import math
 import os
 
-import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -95,12 +95,11 @@ from dl_ofdm_tpu_torch.ofdm.plan import build_plan
 from dl_ofdm_tpu_torch.ofdm.tx import ofdm_modulate_frames_iq
 from dl_ofdm_tpu_torch.ops.fused_adam import (AdamHyper, AdamLayout,
                                               fused_adam_kernel,
-                                              kernel_layout)
-from dl_ofdm_tpu_torch.ops.fused_model import (ModelSpec, dccn_fused_grads,
-                                               reg_grads)
+                                              kernel_layout, l2_fold)
+from dl_ofdm_tpu_torch.ops.fused_model import ModelSpec, dccn_fused_grads
 from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
-                                               build_synth_spec,
-                                               fused_synthesize)
+                                               fused_synthesize,
+                                               synth_spec_for)
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
 from dl_ofdm_tpu_torch.parallel import distributed as pd
 from dl_ofdm_tpu_torch.parallel.mesh import (exchange, gather_rows,
@@ -152,10 +151,11 @@ class Adam:
     """optax's `adam` (b1 0.9, b2 0.999, eps 1e-8 outside the sqrt) behind
     its staircase `exponential_decay` schedule, optionally after
     `clip_by_global_norm` (`loop.py:60-67`), as functions of dicts of
-    tensors: `init(params)`, `update(grads, state)`, and `fused(...)`, the
-    step and the parameter write as one call of `ops.fused_adam`.  A value
-    may be the list of a split leaf's shards (a tp mesh): Adam runs on each
-    shard on its device, and the global norm counts each element once."""
+    tensors: `init(params)`, `step(...)`, the step and the parameter write
+    on the path the leaves allow, and `update(grads, state)`, the updates
+    on the `_foreach_*` path.  A value may be the list of a split leaf's
+    shards (a tp mesh): Adam runs on each shard on its device, and the
+    global norm counts each element once."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
     # steps `update` took on CUDA leaves (the `_foreach_*` path)
@@ -215,43 +215,81 @@ class Adam:
             "count": count, "mu": unflatten_leaves(spec, mu),
             "nu": unflatten_leaves(spec, nu)}
 
-    def fused(self, params: dict, grads: dict, state: dict, conf=None,
-              ce=None, reg_coeff: float = 0.0, return_grads: bool = False):
-        """The step on `grads`' keys as one launch of `fused_adam_kernel`
-        where every leaf is float32 on one CUDA device (a leaf in another
-        layout copied to the kernel's, `kernel_layout`); None with clipping
-        or on any other leaves (CPU tensors, split leaves' shard lists),
-        where `update` takes the step.  With the counts `conf` and the mean
-        `ce` the `Dense` leaves' L2 term is folded into their gradients.
-        Returns a function that runs the step and gives (the new parameters
-        of `grads`' keys, the new state, the loss scalars (with `conf`),
-        the gradients the update used (with `return_grads`))."""
+    def _kernel_leaves(self, keys, params: dict, grads: dict, state: dict):
+        """(the kernel's layout, its leaves: parameters, gradients and both
+        moments of `keys`) where `fused_adam_kernel` takes the step: every
+        leaf float32 on one CUDA device (a leaf in another layout copied to
+        the kernel's, `kernel_layout`) and no clipping; else None."""
         if self.tc.grad_clip > 0:
             return None
-        keys = list(grads)
-        ws = [params[k] for k in keys]
-        gs = [grads[k] for k in keys]
-        mus = [state["mu"][k] for k in keys]
-        nus = [state["nu"][k] for k in keys]
-        lay = AdamLayout.of(self._layouts, keys, ws, gs, mus, nus)
+        leaves = ([params[k] for k in keys], [grads[k] for k in keys],
+                  [state["mu"][k] for k in keys],
+                  [state["nu"][k] for k in keys])
+        lay = AdamLayout.of(self._layouts, keys, *leaves)
         if lay is None:
-            laid = kernel_layout(ws, gs, mus, nus)
-            if laid is None:
+            leaves = kernel_layout(*leaves)
+            if leaves is None:
                 return None
-            ws, gs, mus, nus = laid
-            lay = AdamLayout.of(self._layouts, keys, ws, gs, mus, nus)
-        count = state["count"]
-        hp = AdamHyper(self.b1, self.b2, self.eps,
-                       self.learning_rate(count), count + 1)
+            lay = AdamLayout.of(self._layouts, keys, *leaves)
+        return lay, leaves
 
-        def step():
-            out = fused_adam_kernel(lay, ws, gs, mus, nus, hp, conf, ce,
-                                    reg_coeff, return_grads)
+    def step(self, params: dict, grads: dict, state: dict, conf=None,
+             ce=None, reg_coeff: float = 0.0, sq: list | None = None,
+             return_grads: bool = False):
+        """The step and the parameter write on `grads`' keys: (their new
+        parameters, the new state, the loss scalars (`fused_adam.SCALARS`,
+        with `conf`) or None, the gradients the update used (with
+        `return_grads`) or None).  With the counts `conf` and the mean `ce`
+        the `Dense` leaves' L2 term is folded into their gradients.
+
+        One launch of `fused_adam_kernel` where `_kernel_leaves` allows it;
+        else `fused_adam.l2_fold` (with `conf`), `update` (clipping, split
+        leaves' shard lists, `sq` as there) and the parameter add.  Spans:
+        with `conf` the choice and the fold under `optim.loss_terms`, then
+        the launch or the update under `optim.adam`; without, the whole
+        step under `optim.adam`."""
+        keys = list(grads)
+        if conf is None:
+            with span("optim.adam"):
+                kernel = self._kernel_leaves(keys, params, grads, state)
+                return self._launch_or_update(
+                    kernel, keys, params, grads, state, sq=sq,
+                    return_grads=return_grads)
+        scalars = None
+        with span("optim.loss_terms"):
+            kernel = self._kernel_leaves(keys, params, grads, state)
+            if kernel is None:
+                gs, scalars = l2_fold(keys, [params[k] for k in keys],
+                                      [grads[k] for k in keys], conf, ce,
+                                      reg_coeff)
+                grads = dict(zip(keys, gs))
+        with span("optim.adam"):
+            return self._launch_or_update(
+                kernel, keys, params, grads, state, conf, ce, reg_coeff, sq,
+                return_grads, scalars)
+
+    def _launch_or_update(self, kernel, keys, params, grads, state,
+                          conf=None, ce=None, reg_coeff=0.0, sq=None,
+                          return_grads=False, scalars=None):
+        """`step`'s second half on the path `kernel` (`_kernel_leaves`'
+        answer) names; the plain path's `grads` are already folded."""
+        if kernel is not None:
+            lay, leaves = kernel
+            count = state["count"]
+            hp = AdamHyper(self.b1, self.b2, self.eps,
+                           self.learning_rate(count), count + 1)
+            out = fused_adam_kernel(lay, *leaves, hp, conf, ce, reg_coeff,
+                                    return_grads)
             return (dict(zip(keys, out.params)),
                     {"count": hp.count, "mu": dict(zip(keys, out.mu)),
                      "nu": dict(zip(keys, out.nu))}, out.scalars,
-                    None if out.grads is None else dict(zip(keys, out.grads)))
-        return step
+                    None if out.grads is None
+                    else dict(zip(keys, out.grads)))
+        updates, state = self.update(grads, state, sq)
+        spec, upd = flatten_leaves(updates)
+        new = unflatten_leaves(spec, torch._foreach_add(
+            flatten_leaves({k: params[k] for k in keys})[1], upd))
+        return new, state, scalars, grads if return_grads else None
 
 
 def make_optimizer(tc: TrainConfig) -> Adam:
@@ -334,27 +372,9 @@ class Trainer:
         self.batch_frames = self._round_to_dp(
             max(1, tc.batch_size // cfg.nsymbol))
         # the fused chain's eligibility (`loop.py:128-170`), apart from the
-        # device: the TX operator within 2 MiB, no symbol without data
-        self._fused_synth_spec = None
-        tx_op_bytes = 2 * 4 * self.plan.frame_size * self.plan.samples_per_symbol
-        sym_counts = np.bincount(self.plan.data_sc // cfg.nfft,
-                                 minlength=self.plan.nsymbol)
-        ch = self.channel
-        if cfg.nbits <= 4 and tx_op_bytes <= 2 * 2**20 \
-                and sym_counts.min() > 0:
-            profs = [None if ch._passthrough[i] else p
-                     for i, p in enumerate(ch.profiles)]
-            fd = dop_cycle = None
-            if ch.has_doppler:
-                # frame i takes the Jakes path iff _frame_doppler_mask says
-                # so; the pattern repeats every lcm(P, 3|4) frames
-                per = {"mixrayleigh": 3, "mixall": 4}.get(ch.channel, 1)
-                cyc_len = math.lcm(len(ch.profiles), per)
-                dop_cycle = ch._frame_doppler_mask(
-                    cyc_len, ch._frame_profiles(cyc_len))
-                fd = ch._fd_np
-            self._fused_synth_spec = build_synth_spec(
-                self.plan, profs, cfg.nbits, fd=fd, dop_cycle=dop_cycle)
+        # device: the synth kernel's, then the model's
+        self._fused_synth_spec = synth_spec_for(self.plan, self.channel,
+                                                cfg.nbits)
         self._fused_model_spec = None
         if (self._fused_synth_spec is not None
                 and type(self.model) is DCCNReceiver
@@ -693,17 +713,9 @@ class Trainer:
             sq = [torch.sum(s * s) for k, v in grads.items()
                   for s in ([shard_of(k, full[k], tp, t) for t in range(tp)]
                             if isinstance(v, list) else [v])]
-        with span("optim.adam"):
-            old = self._leaves(state.params, state.replicas, grads)
-            step = self.optimizer.fused(old, grads, state.opt_state)
-            if step is not None:
-                new, opt_state, _, _ = step()
-            else:
-                updates, opt_state = self.optimizer.update(
-                    grads, state.opt_state, sq)
-                spec, upd = flatten_leaves(updates)
-                new = unflatten_leaves(spec, torch._foreach_add(
-                    flatten_leaves(old)[1], upd))
+        new, opt_state, _, _ = self.optimizer.step(
+            self._leaves(state.params, state.replicas, grads), grads,
+            state.opt_state, sq=sq)
         params = dict(state.params)
         params.update(self._gathered(new))
         return TrainState(params, opt_state, state.step + 1,
@@ -760,8 +772,8 @@ class Trainer:
                           return_grads):
         """Synth kernel (raw planes) -> batch moments -> fused model
         gradient kernel -> L2 gradient -> Adam (`loop.py:296-335`); the last
-        two and the loss scalars as one kernel launch on a card
-        (`Adam.fused`), else the L2 term here and `_apply`."""
+        two and the loss scalars in one `Adam.step` (one kernel launch on
+        a card)."""
         b = self.batch_frames
         with span("data.fused_synth"):
             idx, yr, yi, nr, ni, stats = fused_synthesize(
@@ -772,28 +784,9 @@ class Trainer:
             grads, ce, conf = dccn_fused_grads(
                 self._fused_model_spec, b, state.params, yr, yi, nr, ni, c,
                 idx)
-        with span("optim.loss_terms"):
-            step = self.optimizer.fused(
-                state.params, grads, state.opt_state, conf, ce,
-                self.tc.reg_coeff, return_grads)
-            if step is None:
-                log_ber, ber = M.ber_from_confusion(conf)
-                reg = M.l2_regularization(state.params)
-                rc = self.tc.reg_coeff
-                loss = ce + ber * rc * reg
-                reg_g = reg_grads(state.params, ber, rc)
-                keys = list(grads)
-                grads = dict(zip(keys, torch._foreach_add(
-                    [grads[k] for k in keys], [reg_g[k] for k in keys])))
-        if step is None:
-            aux = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
-                   "total_loss": loss + log_ber, "loss": loss,
-                   "noise_power": noise_pwr}
-            if return_grads:
-                aux["grads"] = grads
-            return self._apply(state, grads), aux
-        with span("optim.adam"):
-            new, opt_state, sc, used = step()
+        new, opt_state, sc, used = self.optimizer.step(
+            state.params, grads, state.opt_state, conf, ce,
+            self.tc.reg_coeff, return_grads=return_grads)
         params = dict(state.params)
         params.update(new)
         aux = {"ce": ce, "ber": sc["ber"], "log_ber": sc["log_ber"],

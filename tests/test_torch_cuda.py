@@ -413,13 +413,14 @@ def test_fused_steps_with_the_kernel_equal_the_foreach_path(cuda,
     """20 fused steps at 1,024 frames from one init and one seed: the
     parameters and both moments after each step bit-identical between the
     kernel and the L2 term with `Adam.update` (a second trainer whose
-    optimizer's `fused` the test turns off)."""
+    optimizer's `_kernel_leaves` the test turns off)."""
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
     from dl_ofdm_tpu_torch.ops import fused_adam as fa
     from dl_ofdm_tpu_torch.train.loop import Adam, Trainer
     tk, tf = (Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=7 * 1024),
                       channel="ETU") for _ in range(2))
-    monkeypatch.setattr(tf.optimizer, "fused", lambda *a, **k: None)
+    monkeypatch.setattr(tf.optimizer, "_kernel_leaves",
+                        lambda *a, **k: None)
     assert tk._use_fused_model and tk.batch_frames == 1024
     init = tk.init_state(torch.Generator(device=cuda).manual_seed(0))
     snr = torch.full((1024,), 5.0, device=cuda)
@@ -444,7 +445,7 @@ def test_fused_steps_with_the_kernel_equal_the_foreach_path(cuda,
 
 def test_fused_adam_copies_other_layouts_to_the_kernels(cuda):
     """A moment laid out transposed and a 3-D gradient view on a card:
-    `Adam.fused` copies them to the kernel's layout and launches it (no
+    `Adam.step` copies them to the kernel's layout and launches it (no
     step on the foreach path), with the bits of the contiguous leaves;
     the step's loss scalars are a 5-value tensor apart from its state."""
     from dl_ofdm_tpu_torch.config import TrainConfig
@@ -475,7 +476,7 @@ def test_fused_adam_copies_other_layouts_to_the_kernels(cuda):
     conf = torch.tensor([[30, 2], [3, 25]], device=cuda)
     ce = torch.tensor([0.5], device=cuda)
     n0, f0 = fa.fused_adam_kernel.launches, Adam.foreach_steps
-    outs = [opt.fused(params, gd, st, conf, ce, 0.5)()
+    outs = [opt.step(params, gd, st, conf, ce, 0.5)
             for gd, st in ((grads, state), (odd_grads, odd_state))]
     torch.cuda.synchronize()
     assert fa.fused_adam_kernel.launches == n0 + 2

@@ -2,6 +2,8 @@
 against the JAX package's: the spec, the plain version on the very words
 JAX's `emulate_fused_synthesize` draws, `_combine_stats`, and the Philox
 generator that the CUDA kernel shares with the plain version."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,9 @@ import torch
 from dl_ofdm_tpu.channel.rayleigh import RayleighChannel as JChannel
 from dl_ofdm_tpu.config import OFDMConfig as JCfg
 from dl_ofdm_tpu.ofdm.plan import build_plan as jbuild_plan
+from dl_ofdm_tpu.config import TrainConfig as JTc
 from dl_ofdm_tpu.ops import fused_synth as jfs
+from dl_ofdm_tpu.train.loop import Trainer as JTrainer
 from dl_ofdm_tpu_torch.channel.rayleigh import RayleighChannel
 from dl_ofdm_tpu_torch.config import OFDMConfig
 from dl_ofdm_tpu_torch.ofdm.plan import build_plan
@@ -30,10 +34,8 @@ def _specs(channel, nbits):
                           sample_rate=tplan.sample_rate)
     jprofs = [None if jch._passthrough[i] else p
               for i, p in enumerate(jch.profiles)]
-    tprofs = [None if tch._passthrough[i] else p
-              for i, p in enumerate(tch.profiles)]
     return (jfs.build_synth_spec(jplan, jprofs, nbits),
-            tfs.build_synth_spec(tplan, tprofs, nbits))
+            tfs.build_synth_spec(tplan, tch.frame_layout()[0], nbits))
 
 
 @pytest.mark.parametrize("ctr,key,want", [
@@ -81,6 +83,33 @@ def test_spec_matches_jax(channel, nbits):
     sr, si = jfs._symbols_from_idx(idx, js)
     np.testing.assert_array_equal(ts.sym_table[:, 0], np.asarray(sr)[0])
     np.testing.assert_array_equal(ts.sym_table[:, 1], np.asarray(si)[0])
+
+
+@pytest.mark.parametrize("mobile", [False, True])
+@pytest.mark.parametrize("channel,nbits", [("AWGN", 4), ("ETU", 1),
+                                           ("mixRayleigh", 3),
+                                           ("mixAll", 2)])
+def test_spec_from_frame_layout_matches_jax_trainers(channel, nbits, mobile):
+    """`synth_spec_for` on the channel's `frame_layout` against the spec
+    JAX's `Trainer` builds from the channel's private fields: every field
+    the two specs share, equal."""
+    jt = JTrainer(JCfg(nbits=nbits), JTc(), channel=channel, mobile=mobile)
+    js = jt._fused_synth_spec
+    plan = build_plan(OFDMConfig(nbits=nbits))
+    ch = RayleighChannel(channel=channel, nfft=64,
+                         sample_rate=plan.sample_rate, mobile=mobile,
+                         mix=mobile)
+    ts = tfs.synth_spec_for(plan, ch, nbits)
+    assert ts.mobile == js.mobile == (mobile and channel != "AWGN")
+    shared = ({f.name for f in dataclasses.fields(ts)}
+              & {f.name for f in dataclasses.fields(js)})
+    assert len(shared) == 27
+    for name in sorted(shared):
+        got, want = getattr(ts, name), getattr(js, name)
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            assert got == want, name
 
 
 def _jax_words(js, n, key):

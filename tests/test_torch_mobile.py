@@ -114,10 +114,8 @@ def test_plain_version_matches_jax_emulator(channel, nbits, n, want_h):
     # Doppler rows differ from what the static path gives on the same words
     dop = tfs.doppler_rows(ts, n)
     static = tfs.fused_synthesize_ref(
-        tfs.build_synth_spec(tt.plan, [None if tt.channel._passthrough[i]
-                                       else p for i, p in
-                                       enumerate(tt.channel.profiles)],
-                             nbits), n, std, words=words)
+        tfs.build_synth_spec(tt.plan, tt.channel.frame_layout()[0], nbits),
+        n, std, words=words)
     moved = (static[1] - got[1]).abs().amax(1) > 1e-6
     assert moved.tolist() == dop.tolist()
 

@@ -320,6 +320,62 @@ def test_two_fused_steps_match_jax():
     assert state.step == 2 and state.opt_state["count"] == 2
 
 
+@pytest.mark.parametrize("grad_clip", [0.0, 0.05])
+def test_fused_step_matches_the_composition_it_takes_on_the_cpu(grad_clip):
+    """Three fused-route steps on the CPU (`train_step(fused=True,
+    words=...)`, through `Adam.step`'s plain path) against the composition
+    written out: the synthesize chain's plain version, `_combine_stats`,
+    `dccn_fused_grads_ref`, BER and L2 from the counts, `reg_grads` plus
+    `_foreach_add`, `Adam.update` and the parameter add.  Parameters, both
+    moments and every aux value, bit for bit; with `grad_clip` the
+    clipping takes part."""
+    from dl_ofdm_tpu_torch.ops import fused_synth as tfs
+    from dl_ofdm_tpu_torch.ops.fused_model import (dccn_fused_grads_ref,
+                                                   reg_grads)
+    n, rc = 4, 1e-2
+    tt = Trainer(OFDMConfig(nbits=1), TrainConfig(
+        batch_size=7 * n, reg_coeff=rc, grad_clip=grad_clip,
+        lr_decay_steps=2, lr_decay_rate=0.5,
+        fused_model_matmul_dtype="float32"), channel="ETU", device="cpu")
+    spec = tt._fused_synth_spec
+    state = tt.init_state(torch.Generator().manual_seed(0))
+    params, opt = dict(state.params), tt.optimizer
+    opt_state = opt.init(params)
+    snr = torch.full((n,), 5.0)
+    for step in range(3):
+        words = _words(spec, n, jax.random.PRNGKey(20 + step))
+        state, aux = tt.train_step(state, None, snr, words=words, fused=True)
+        idx, yr, yi, nr, ni, stats = tfs.fused_synthesize(
+            spec, n, None, snr, raw=True, words=words)
+        _, c, noise_pwr, _ = tfs._combine_stats(stats.sum(0), n)
+        grads, ce, conf = dccn_fused_grads_ref(
+            tt._fused_model_spec, n, params, yr, yi, nr, ni, c, idx)
+        log_ber, ber = TM.ber_from_confusion(conf)
+        loss = ce + ber * rc * TM.l2_regularization(params)
+        reg_g = reg_grads(params, ber, rc)
+        keys = list(grads)
+        grads = dict(zip(keys, torch._foreach_add(
+            [grads[k] for k in keys], [reg_g[k] for k in keys])))
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        assert grad_clip == 0 or float(norm) > grad_clip
+        upd, opt_state = opt.update(grads, opt_state)
+        params.update(zip(keys, torch._foreach_add(
+            [params[k] for k in keys], [upd[k] for k in keys])))
+        want = {"ce": ce, "ber": ber, "log_ber": log_ber, "conf": conf,
+                "total_loss": loss + log_ber, "loss": loss,
+                "noise_power": noise_pwr}
+        assert set(aux) == set(want)
+        for k, v in want.items():
+            assert torch.equal(aux[k], v), (step, k)
+        assert set(state.params) == set(params)
+        for k in params:
+            assert torch.equal(state.params[k], params[k]), (step, k)
+            for m in ("mu", "nu"):
+                assert torch.equal(state.opt_state[m][k],
+                                   opt_state[m][k]), (step, m, k)
+        assert state.step == state.opt_state["count"] == step + 1
+
+
 def test_routes_agree_on_cpu():
     """The autograd route and the fused route (plain versions) give the
     same gradients on the same words, L2 term included."""

@@ -304,6 +304,19 @@ Phases, each printed with its elapsed seconds:
     counters set to 0 before them, so the kernels line's `launches` is these
     steps' 160). Alone: `cs.phase_block_conv(dev, f32_flops)` after
     `cuda_build.build_all()`.
+30. (run before the profiled phases) the plain data plane of a static
+    channel as two kernels (`csrc/synth_chain.cu`), which `Trainer.synthesize`
+    takes on a card (phases 4, 14, 15, 19 and 26 run it: their static calls
+    count the chain's launches, two a call, and `fir_shift_accum` runs only
+    on their Doppler calls): at the two sweep cells' calls (1,968 x nfft 64
+    ETU frames in 41 groups, 992 x nfft 512 AWGN frames in 31) against
+    today's path on the same draws (rx_in within 1e-4 beyond today's own
+    float32 error against a float64 normalization; h, waveform and noise
+    power within 2e-6; the generator's state), two calls bit-identical;
+    the kernels' device time (CUDA graph) beside their byte bound; both
+    paths' host time a call; the launches and host-to-device copies a call
+    under `torch.profiler`; a Doppler call counted as a fallback.  Alone:
+    `cs.phase_synth_chain(dev, hbm_bps)` after `cuda_build.build_all()`.
  5. (printed last) one `{"kernels": [...]}` line with all nine kernels
     (launches of `fused_synth` and `dccn_fused_grads` from phase 11, of
     `complex_dense` from phase 4a (with its equalizer-path counts, and
@@ -327,6 +340,7 @@ Phases, each printed with its elapsed seconds:
 Any failure raises and exits non-zero; so does a machine with no CUDA
 device, or a directory that holds this script without the package.
 """
+import contextlib
 import copy
 import json
 import os
@@ -1823,18 +1837,23 @@ def phase_cdense_eq(tpk, dev, hbm_bps, f32_flops) -> None:
 
 
 def path_counts(tpk, tfs):
-    """The launch counts of every kernel on the equalizer stage's paths."""
+    """The launch counts of every kernel on the equalizer stage's paths
+    (the plain data plane's chain: two a call)."""
+    from dl_ofdm_tpu_torch.ops import synth_chain
     return {"fir_shift_accum": tpk.fir_shift_accum_kernel.launches,
             "complex_dense": tpk.complex_dense_kernel.launches,
-            "fused_synth": tfs.fused_synthesize_kernel.launches}
+            "fused_synth": tfs.fused_synthesize_kernel.launches,
+            "synth_chain": synth_chain.synth_chain_kernel.launches}
 
 
 def zero_counts(tpk, tfs) -> None:
     import torch
+    from dl_ofdm_tpu_torch.ops import synth_chain
     torch.cuda.synchronize()
     tpk.fir_shift_accum_kernel.launches = 0
     tpk.complex_dense_kernel.launches = 0
     tfs.fused_synthesize_kernel.launches = 0
+    synth_chain.synth_chain_kernel.launches = 0
 
 
 def phase_serve_arms(tpk, tfs, dev) -> dict:
@@ -1903,7 +1922,8 @@ def phase_serve_arms(tpk, tfs, dev) -> dict:
         raise AssertionError(f"{len(cells)} cells, not 54")
     if bad:
         raise AssertionError(f"cells outside {GATE_BAND}: {bad}")
-    for k in ("fir_shift_accum", "complex_dense"):
+    # the static arms' data plane is the chain, the mobile arms' the FIR
+    for k in ("synth_chain", "fir_shift_accum", "complex_dense"):
         if launches[k] < 1:
             raise AssertionError(f"serving the arms launched no {k}")
     return launches
@@ -2054,7 +2074,8 @@ def phase_train_eq(tpk, tfs, dev) -> dict:
         raise AssertionError(f"fused_synth launched "
                              f"{launches['fused_synth']} times in "
                              f"{fused_steps} fused equalizer steps")
-    for k in ("fir_shift_accum", "complex_dense"):
+    # static mixRayleigh: the plain data plane is the chain
+    for k in ("synth_chain", "complex_dense"):
         if launches[k] < 1:
             raise AssertionError(f"equalizer training launched no {k}")
     return launches
@@ -2223,11 +2244,14 @@ HALO_OFFSETS = (6, 0)              # 'same' and causal
 
 def phase_mesh_train(tpk, dev) -> dict:
     """Phase 19a: the dp training step, `bench.py`'s configuration on a
-    4-rank mesh of virtual ranks; returns its `fir_shift_accum` launches."""
+    4-rank mesh of virtual ranks; returns its launches of the plain data
+    plane's kernels (static ETU: the chain's two a rank and step)."""
     import torch
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import synth_chain
     from dl_ofdm_tpu_torch.parallel.mesh import make_mesh
     from dl_ofdm_tpu_torch.train.loop import Trainer
+    chain = synth_chain.synth_chain_kernel
     mesh = make_mesh([dev] * MESH_DP, dp=MESH_DP)
     cfg, tc = OFDMConfig(nbits=1), TrainConfig(batch_size=65534)
     tr = Trainer(cfg, tc, channel="ETU", mesh=mesh)
@@ -2240,6 +2264,7 @@ def phase_mesh_train(tpk, dev) -> dict:
     snr = torch.full((frames,), 5.0, device=dev)
     torch.cuda.synchronize()
     tpk.fir_shift_accum_kernel.launches = 0
+    chain.launches = 0
     state, aux = tr.train_step(state, gen, snr)            # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2247,10 +2272,12 @@ def phase_mesh_train(tpk, dev) -> dict:
         state, aux = tr.train_step(state, gen, snr)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3 / MESH_STEPS
-    launches = tpk.fir_shift_accum_kernel.launches
-    if launches != MESH_DP * (MESH_STEPS + 1):
-        raise AssertionError(f"fir_shift_accum launched {launches} times in "
-                             f"{MESH_STEPS + 1} dp steps of {MESH_DP} ranks")
+    launches = chain.launches
+    fir = tpk.fir_shift_accum_kernel.launches
+    if launches != 2 * MESH_DP * (MESH_STEPS + 1) or fir:
+        raise AssertionError(f"the chain launched {launches} kernels and "
+                             f"fir_shift_accum {fir} in {MESH_STEPS + 1} dp "
+                             f"steps of {MESH_DP} ranks")
     if not torch.isfinite(aux["loss"]):
         raise AssertionError(f"dp step loss {float(aux['loss'])}")
     same = all(torch.equal(rep[k], state.params[k])
@@ -2273,15 +2300,15 @@ def phase_mesh_train(tpk, dev) -> dict:
     line = {"phase": 19, "part": "dp train step", "dp": MESH_DP,
             "frames": frames, "ms_per_step": ms,
             "iq_samples_per_s": frames * 7 * 80 / (ms / 1e3),
-            "fir_shift_accum_launches": launches,
+            "synth_chain_launches": launches,
             "steps": MESH_STEPS + 1, "step1_grad_err": gerr,
             "replicas_identical": same, "ce": float(aux["ce"])}
     log(f"dp step ({MESH_DP} virtual ranks, {frames} frames): {ms:.3f} "
-        f"ms/step; fir_shift_accum {launches} launches in "
+        f"ms/step; the chain's kernels {launches} launches in "
         f"{MESH_STEPS + 1} steps; step-1 gradients within {gerr:.3g} of "
         f"the single-device route; replicas bit-identical")
     print(json.dumps(line), flush=True)
-    return {"fir_shift_accum": launches}
+    return {"fir_shift_accum": fir, "synth_chain": launches}
 
 
 def phase_mesh_sweeps(tpk, dev, trainer, csv_ber) -> None:
@@ -2769,6 +2796,7 @@ def proc_train(mesh, dev) -> dict:
     import torch
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
     from dl_ofdm_tpu_torch.ops import pallas_kernels as tpk
+    from dl_ofdm_tpu_torch.ops import synth_chain
     from dl_ofdm_tpu_torch.train.loop import Trainer
     tr = Trainer(OFDMConfig(nbits=1), TrainConfig(batch_size=65534),
                  channel="ETU", mesh=mesh)
@@ -2782,6 +2810,7 @@ def proc_train(mesh, dev) -> dict:
     torch.cuda.synchronize(dev)
     tpk.fir_shift_accum_kernel.launches = 0
     tpk.complex_dense_kernel.launches = 0
+    synth_chain.synth_chain_kernel.launches = 0
     losses = []
     for i in range(PROC_STEPS):
         if i == 1:
@@ -2798,6 +2827,7 @@ def proc_train(mesh, dev) -> dict:
     return {"frames": frames, "ms_per_step": ms,
             "losses": [float(v) for v in losses],
             "fir_shift_accum": tpk.fir_shift_accum_kernel.launches,
+            "synth_chain": synth_chain.synth_chain_kernel.launches,
             "complex_dense": tpk.complex_dense_kernel.launches,
             "params": {k: v.cpu() for k, v in state.params.items()}}
 
@@ -3014,12 +3044,14 @@ def phase_processes(dev) -> dict:
     if loss_err > 1e-4:
         raise AssertionError(f"phase 26a: a step's loss {loss_err:.3g} "
                              "from the one-process mesh's")
-    want = {"fir_shift_accum": PROC_STEPS, "complex_dense": PROC_STEPS}
+    want = {"synth_chain": 2 * PROC_STEPS, "fir_shift_accum": 0,
+            "complex_dense": PROC_STEPS}
     for r, p in enumerate(procs):
         got = {k: p["train"][k] for k in want}
         if got != want:
             raise AssertionError(f"phase 26a process {r}: launches {got}, "
-                                 f"want {want} (one a local row a step)")
+                                 f"want {want} (a local row's chain and "
+                                 f"complex_dense a step)")
     ms = [p["train"]["ms_per_step"] for p in procs]
     log(f"26a dp-2 step at 9,362 frames over {PROC_N} processes "
         f"({backend}): {max(ms):.3f} ms/step (processes {ms}) against "
@@ -3117,6 +3149,7 @@ def phase_processes(dev) -> dict:
     return {"ring": ring,
             "fir_shift_accum": sum(p["train"]["fir_shift_accum"]
                                    for p in procs),
+            "synth_chain": sum(p["train"]["synth_chain"] for p in procs),
             "complex_dense": sum(p["train"]["complex_dense"]
                                  + p["sweep"]["complex_dense"]
                                  for p in procs)}
@@ -4880,6 +4913,220 @@ def phase_sg_tp(dev) -> dict:
     return line
 
 
+# -- 30. the plain data plane's chain ----------------------------------------
+# (channel, nfft, SNR points, frames a point) of the two sweep cells' calls:
+# bpsk64.sweep_etu's 1,968 frames and big512.sweep_awgn's 992
+CHAIN_CALLS = (("ETU", 64, 41, 48), ("AWGN", 512, 31, 32))
+CHAIN_HOST_CALLS = 50              # calls a path a turn, host clock
+CHAIN_PROFILED_CALLS = 10
+
+
+@contextlib.contextmanager
+def todays_data_plane(sc):
+    """`Trainer.synthesize` through its modules (`RayleighChannel`,
+    `awgn_channel`, `batch_norm_ref`), as before the chain, on a card."""
+    keep = sc.chain_for
+    sc.chain_for = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        sc.chain_for = keep
+
+
+def f64_normalize(v, onehot):
+    """`batch_norm_ref` of the noisy waveform v [B, S, sps, 2] per group in
+    float64, two-pass: what both paths' float32 rx_in are held to."""
+    import torch
+    b = v.shape[0]
+    x = v.double().reshape(b, -1)
+    g = onehot.argmax(1)
+    cnt = onehot.double().sum(0)[:, None]
+    mean = torch.zeros(onehot.shape[1], x.shape[1], dtype=torch.float64,
+                       device=v.device).index_add_(0, g, x) / cnt
+    d = x - mean[g]
+    var = torch.zeros_like(mean).index_add_(0, g, d * d) / cnt
+    return (d / torch.sqrt(var[g] + 1e-9) / np.sqrt(2.0)).reshape(v.shape)
+
+
+def launch_counts(prof, calls: int) -> dict:
+    """Kernel-launch API events, host-to-device copies and each chain
+    kernel's device µs a call in a profiler's window of `calls` calls."""
+    launches = copies = 0
+    us = {"chain_tx_kernel": 0.0, "chain_norm_kernel": 0.0}
+    for e in prof.key_averages():
+        if e.key.startswith(("cudaLaunch", "cuLaunch")):
+            launches += e.count
+        if "HtoD" in e.key:
+            copies += e.count
+        for name in us:
+            if name in e.key:
+                us[name] += getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0.0))
+    return {"launches": launches / calls, "htod_copies": copies / calls,
+            **{f"{k}_us": v / calls for k, v in us.items()}}
+
+
+def phase_synth_chain(dev, hbm_bps) -> dict:
+    """Phase 30: the plain data plane of a static channel as two kernels
+    (`ops/synth_chain.py`, `csrc/synth_chain.cu`) at the two sweep cells'
+    calls (1,968 x nfft 64 ETU frames in 41 groups; 992 x nfft 512 AWGN
+    frames in 31 groups), on the benchmark's kind of draws (bits and
+    float32 unit noise given, tap gains from a generator): against today's
+    path (rx_in within 1e-4 beyond today's own float32 error against a
+    float64 normalization; h, waveform, noise power; the generator's
+    state), two calls bit-identical, the counters; the kernels' device
+    time (CUDA graph) beside their byte bound; both paths' host-clock time
+    a call (turns T C C T); the launches and host-to-device copies a call
+    of each path under `torch.profiler` (last: the profiler slows what
+    follows).  Alone: `cs.phase_synth_chain(dev, hbm_bps)` after
+    `cuda_build.build_all()`."""
+    import torch
+    from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.eval.sweep import interleaved_groups
+    from dl_ofdm_tpu_torch.ops import synth_chain as sc
+    from dl_ofdm_tpu_torch.train.loop import Trainer
+    k = sc.synth_chain_kernel
+    torch.cuda.synchronize()
+    k.launches = k.fallbacks = 0
+    lines, calls = {}, 0
+    for chan, nfft, pts, per in CHAIN_CALLS:
+        tr = Trainer(OFDMConfig(nbits=1, nfft=nfft, nfilter=nfft),
+                     TrainConfig(), channel=chan, device=dev)
+        plan = tr.plan
+        snr, onehot = interleaved_groups(list(range(-10, -10 + pts)),
+                                         pts * per, dev)
+        b = snr.shape[0]
+        g = torch.Generator(device=dev).manual_seed(30)
+        bits = torch.randint(0, 2, (b, plan.frame_size, 1), generator=g,
+                             dtype=torch.int32, device=dev)
+        unit = torch.randn(b, plan.nsymbol, plan.samples_per_symbol, 2,
+                           generator=g, device=dev)
+
+        def call(normalize=True, seed=31):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            out = tr.synthesize(b, snr, gen, norm_groups=onehot, bits=bits,
+                                unit_noise=unit, normalize=normalize)
+            return out, gen.get_state()
+
+        got, s_chain = call()
+        again, _ = call()
+        calls += 2
+        with todays_data_plane(sc):
+            want, s_today = call()
+            noisy = call(normalize=False)[0][1]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        err = float((got[1] - want[1]).abs().max())
+        own = float((want[1].double() - f64_normalize(noisy, onehot)
+                     ).abs().max())
+        chain_own = float((got[1].double() - f64_normalize(
+            noisy, onehot)).abs().max())
+        errs = {"h_freq": float((got[2] - want[2]).abs().max()),
+                "waveform": float((got[4] - want[4]).abs().max()),
+                "noise_power_rel": abs(float(got[3] / want[3]) - 1)}
+        if not (same and torch.equal(s_chain, s_today)
+                and torch.equal(got[0], want[0]) and err <= 1e-4 + own
+                and errs["h_freq"] <= 2e-6 and errs["waveform"] <= 2e-6
+                and errs["noise_power_rel"] <= 2e-6):
+            raise AssertionError(
+                f"phase 30 {chan} {nfft}: bit-identical {same}, generator "
+                f"states equal {torch.equal(s_chain, s_today)}, rx_in "
+                f"{err:.3g} (today's own {own:.3g}), {errs}")
+        # the kernels alone: device time from a CUDA graph
+        c, cp = sc.chain_for(plan, tr.channel, 1, dev, b, onehot, True)
+        zck = torch.randn(b, tr.channel.max_taps, 2, generator=g,
+                          device=dev)
+        n0 = k.launches
+        graph_ms, eager_ms = time_ms(lambda: sc.synth_chain_kernel(
+            c, cp, bits, zck, snr, onehot, unit), iters=100)
+        calls += (k.launches - n0) // 2
+        l2 = 2 * c.length
+        n_bytes = 4 * (b * c.frame_size + 2 * b * tr.channel.max_taps
+                       + b + b * pts + b * l2) + 4 * 2 * b * l2 \
+            + 8 * b * c.nfft
+        bound_ms = n_bytes / hbm_bps * 1e3
+        # host clock a call, turns today / chain / chain / today
+        host = {"today": [], "chain": []}
+        for path in ("today", "chain", "chain", "today"):
+            ctx = (todays_data_plane(sc) if path == "today"
+                   else contextlib.nullcontext())
+            with ctx:
+                call()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(CHAIN_HOST_CALLS):
+                    call()
+                torch.cuda.synchronize()
+            host[path].append((time.perf_counter() - t) * 1e3
+                              / CHAIN_HOST_CALLS)
+        calls += 2 * (CHAIN_HOST_CALLS + 1)
+        line = {"phase": 30, "call": f"{chan} nfft {nfft}", "frames": b,
+                "groups": pts, "plan": cp._asdict(),
+                "rx_in_max_abs_diff": err, "todays_own_err": own,
+                "chains_own_err": chain_own, **errs,
+                "bit_identical": same, "generator_state_equal": True,
+                "kernel_ms": graph_ms, "kernel_eager_ms": eager_ms,
+                "bytes": n_bytes, "bound_ms": bound_ms,
+                "share_of_bound": bound_ms / graph_ms,
+                "host_ms_a_call": host,
+                "timing": "kernels: CUDA graph of 100 calls; host: "
+                          f"{CHAIN_HOST_CALLS} calls of synthesize a turn"}
+        lines[(chan, nfft)] = (line, tr, snr, onehot, bits, unit)
+        log(f"chain {chan} nfft {nfft} x {b} frames: rx_in within {err:.3g} "
+            f"of today's path (today's own float32 error {own:.3g}, the "
+            f"chain's {chain_own:.3g}), bit-identical twice; kernels "
+            f"{graph_ms:.4f} ms (graph; eager {eager_ms:.4f}), bound "
+            f"{bound_ms:.4f} ms (bytes): {100 * bound_ms / graph_ms:.0f} %; "
+            f"a call by host clock today {host['today']} ms, chain "
+            f"{host['chain']} ms")
+    torch.cuda.synchronize()
+    launches, fallbacks = k.launches, k.fallbacks
+    if launches != 2 * calls or fallbacks != 0:
+        raise AssertionError(f"phase 30: {launches} chain launches for "
+                             f"{calls} calls, {fallbacks} fallbacks")
+    # launches and copies a call under the profiler, today's path and the
+    # chain; then a Doppler call counts as a fallback
+    for key, (line, tr, snr, onehot, bits, unit) in lines.items():
+        per = {}
+        for path in ("today", "chain"):
+            ctx = (todays_data_plane(sc) if path == "today"
+                   else contextlib.nullcontext())
+            with ctx:
+                gen = torch.Generator(device=dev).manual_seed(32)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(CHAIN_PROFILED_CALLS):
+                        tr.synthesize(snr.shape[0], snr, gen,
+                                      norm_groups=onehot, bits=bits,
+                                      unit_noise=unit)
+                    torch.cuda.synchronize()
+            per[path] = launch_counts(prof, CHAIN_PROFILED_CALLS)
+        line["per_call"] = per
+        if per["chain"]["htod_copies"]:
+            raise AssertionError(f"phase 30 {key}: the chain copied from "
+                                 f"the host: {per['chain']}")
+        print(json.dumps(line), flush=True)
+        log(f"chain {key}: a call under the profiler {per}")
+    mob = Trainer(OFDMConfig(nbits=1), TrainConfig(), channel="mixRayleigh",
+                  mobile=True, device=dev)
+    n0 = (k.launches, k.fallbacks)
+    mob.synthesize(30, torch.zeros(30, device=dev),
+                   torch.Generator(device=dev).manual_seed(0))
+    if (k.launches, k.fallbacks) != (n0[0], n0[1] + 1):
+        raise AssertionError("phase 30: a Doppler call did not count as a "
+                             "fallback")
+    etu = lines[("ETU", 64)][0]
+    return {"launches": launches, "fallbacks": k.fallbacks,
+            "ms": etu["kernel_ms"], "bound_ms": etu["bound_ms"],
+            "calls": {f"{c_} nfft {n_}": {
+                f: v[0][f] for f in ("kernel_ms", "bound_ms",
+                                     "rx_in_max_abs_diff", "host_ms_a_call",
+                                     "per_call")}
+                for (c_, n_), v in lines.items()}}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5120,6 +5367,9 @@ def main() -> None:
     tp_procs = phase_tp_processes(dev)
     phase_partition_doppler(tpk, dev)
 
+    # -- 30. the plain data plane's chain (its profiled part last) ----------
+    chain = phase_synth_chain(dev, hbm_bps)
+
     # -- 17-18, 21, 23. the profiled phases -----------------------------------
     phase_profile_eq(dev)
     phase_model_breakdown(tfm, dev)
@@ -5212,6 +5462,17 @@ def main() -> None:
         "shapes": conv["shapes"],
         "steps_bit_identical": conv["steps_bit_identical"],
         "check": "pass"})
+    kernels.append({
+        "name": "synth_chain", "route": "cuda",
+        "source": "dl_ofdm_tpu_torch/csrc/synth_chain.cu",
+        "replaces": "none: XLA's fusion of Trainer.synthesize on the TPU",
+        "launches": chain["launches"],
+        "launches_serving": launches_serve["synth_chain"],
+        "launches_training": launches_eq["synth_chain"],
+        "launches_dp_training": launches_mesh["synth_chain"],
+        "launches_multiprocess": procs["synth_chain"],
+        "ms": chain["ms"], "bound_ms": chain["bound_ms"],
+        "bound_by": "bytes", "calls": chain["calls"], "check": "pass"})
     kernels.insert(1, {
         "name": "pack_stacked_weight", "route": "cuda",
         "source": "dl_ofdm_tpu_torch/csrc/complex_dense_bf16.cu",

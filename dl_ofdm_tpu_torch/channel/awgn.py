@@ -59,12 +59,20 @@ def bf16_normal_from_words(words: torch.Tensor) -> torch.Tensor:
                               idx).reshape(words.shape)
 
 
+def bf16_normal_indices(shape, device: torch.device | str,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+    """The 7 uniform bits a value of `bf16_normal`, int32 [prod(shape)]:
+    the draw itself, which the data plane's chain looks up on the card."""
+    return torch.randint(0, 128, (math.prod(shape),), dtype=torch.int32,
+                         device=device, generator=generator)
+
+
 def bf16_normal(shape, device: torch.device | str,
                 generator: torch.Generator | None = None) -> torch.Tensor:
     """Unit normals distributed as JAX's in bf16: 7 uniform bits a value
     from `generator`, looked up in `bf16_normal_table`."""
-    idx = torch.randint(0, 128, (math.prod(shape),), dtype=torch.int32,
-                        device=device, generator=generator)
+    idx = bf16_normal_indices(shape, device, generator)
     return torch.index_select(bf16_normal_table(torch.device(device)), 0,
                               idx).reshape(shape)
 

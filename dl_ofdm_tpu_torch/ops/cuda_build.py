@@ -38,7 +38,8 @@ SOURCES = {"complex_conv2d": "complex_conv2d.cu",
            "fused_adam": "fused_adam.cu",
            "philox_probe": "philox_probe.cu",
            "fir_shift_accum": "fir_shift_accum.cu",
-           "ring_exchange": "ring_exchange.cu"}
+           "ring_exchange": "ring_exchange.cu",
+           "synth_chain": "synth_chain.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by name

@@ -115,6 +115,39 @@ def _sym_table(nbits: int) -> np.ndarray:
     return out
 
 
+class ProfileClasses(NamedTuple):
+    """The FIR constants of a channel's profile classes, every class's
+    kernel pre-shifted to one 'same' offset (`fused_synth.py:162`)."""
+    taps: int                # max tap count (zero-padded)
+    fir_u: int               # unified (pre-shifted) kernel length
+    off_u: int               # unified 'same' alignment offset
+    coeff: np.ndarray        # [P, taps] tap weights (0 for passthrough)
+    alpha: np.ndarray        # [P, taps, fir_u] pre-shifted alpha matrices
+    gbias: np.ndarray        # [P, fir_u] delta kernel of passthrough rows
+
+
+def profile_classes(profiles) -> ProfileClasses:
+    """`profiles`: a sequence of `channel.profiles.TapProfile`, frame i
+    taking entry i % P, None entries AWGN passthrough frames."""
+    p_n = len(profiles)
+    live = [p for p in profiles if p is not None]
+    taps = max([p.n_taps for p in live], default=1)
+    off_u = max([p.same_offset for p in live], default=0)
+    fir_u = max([p.n_fir + off_u - p.same_offset for p in live], default=1)
+    coeff = np.zeros((p_n, taps), np.float32)
+    alpha = np.zeros((p_n, taps, fir_u), np.float32)
+    gbias = np.zeros((p_n, fir_u), np.float32)
+    for c_idx, prof in enumerate(profiles):
+        if prof is None:
+            gbias[c_idx, off_u] = 1.0     # delta at the unified offset
+            continue
+        shift = off_u - prof.same_offset
+        coeff[c_idx, :prof.n_taps] = prof.ch_coeff
+        alpha[c_idx, :prof.n_taps, shift:shift + prof.n_fir] = \
+            prof.alpha_matrix
+    return ProfileClasses(taps, fir_u, off_u, coeff, alpha, gbias)
+
+
 def build_synth_spec(plan: SubcarrierPlan, profiles=None, nbits: int = 1,
                      fd=None, dop_cycle=None) -> SynthSpec:
     """`profiles`: one `channel.profiles.TapProfile`, a sequence of them
@@ -131,25 +164,15 @@ def build_synth_spec(plan: SubcarrierPlan, profiles=None, nbits: int = 1,
         profiles = [profiles]
     p_n = len(profiles)
     live = [p for p in profiles if p is not None]
-    taps = max([p.n_taps for p in live], default=1)
-    off_u = max([p.same_offset for p in live], default=0)
-    fir_u = max([p.n_fir + off_u - p.same_offset for p in live], default=1)
+    taps, fir_u, off_u, coeff, alpha, gbias = profile_classes(profiles)
     nfft = plan.nfft
-    coeff = np.zeros((p_n, taps), np.float32)
-    alpha = np.zeros((p_n, taps, fir_u), np.float32)
-    gbias = np.zeros((p_n, fir_u), np.float32)
     hb_r = np.zeros((p_n, taps, nfft), np.float32)
     hb_i = np.zeros((p_n, taps, nfft), np.float32)
     hbias = np.zeros((p_n, nfft), np.float32)
     for c_idx, prof in enumerate(profiles):
         if prof is None:
-            gbias[c_idx, off_u] = 1.0     # delta at the unified offset
             hbias[c_idx] = 1.0            # fft(delta) = 1
             continue
-        shift = off_u - prof.same_offset
-        coeff[c_idx, :prof.n_taps] = prof.ch_coeff
-        alpha[c_idx, :prof.n_taps, shift:shift + prof.n_fir] = \
-            prof.alpha_matrix
         # H basis: DFT of the unshifted kernel (the pre-shift is an
         # alignment device and must not reach H)
         dft = np.exp(-2j * np.pi * np.outer(np.arange(prof.n_fir),

@@ -100,6 +100,7 @@ from dl_ofdm_tpu_torch.ops.fused_model import ModelSpec, dccn_fused_grads
 from dl_ofdm_tpu_torch.ops.fused_synth import (_combine_stats,
                                                fused_synthesize,
                                                synth_spec_for)
+from dl_ofdm_tpu_torch.ops import synth_chain
 from dl_ofdm_tpu_torch.ops.norms import batch_norm_ref
 from dl_ofdm_tpu_torch.parallel import distributed as pd
 from dl_ofdm_tpu_torch.parallel.mesh import (exchange, gather_rows,
@@ -488,8 +489,22 @@ class Trainer:
         sweep).  `normalize=False` returns the waveform after AWGN in place
         of `rx_in` (the mesh point_batch sweep normalizes with moments over
         every rank).  `device` (the trainer's by default) is where the bits
-        are drawn, and so where everything runs."""
+        are drawn, and so where everything runs.
+
+        On a CUDA device a call whose frames all take a static FIR runs as
+        the two kernels of `ops/synth_chain.py` on the same draws
+        (`synth_chain.chain_for` decides); the CPU and Doppler frames take
+        the modules below."""
         dev = self.device if device is None else device
+        chain = synth_chain.chain_for(
+            self.plan, self.channel, self.cfg.nbits, dev,
+            n_frames if bits is None else bits.shape[0], norm_groups,
+            normalize)
+        if chain is not None:
+            with span("data.chain"):
+                return synth_chain.synthesize(
+                    chain, n_frames, snr_db, generator, norm_groups, bits,
+                    unit_noise, normalize, dev, self.channel.max_taps)
         with span("data.tx"):
             if bits is None:
                 bits = torch.randint(

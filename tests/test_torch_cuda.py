@@ -657,9 +657,11 @@ def test_fir_same_iq_on_card_launches_the_kernel(cuda, channel):
 
 def test_equalizer_step_on_card(cuda):
     """One curriculum step of the equalizer stage (opt 12, mixRayleigh):
-    the static FIR through its kernel, the equalizer's complex dense
-    layers through theirs, the receiver frozen."""
+    the static channel's data plane through the chain's two kernels (no
+    `fir_shift_accum`), the equalizer's complex dense layers through
+    theirs, the receiver frozen."""
     from dl_ofdm_tpu_torch.config import OFDMConfig, TrainConfig
+    from dl_ofdm_tpu_torch.ops import synth_chain
     from dl_ofdm_tpu_torch.train.equalizer_loop import EqualizerTrainer
     torch.backends.cudnn.allow_tf32 = False
     tr = EqualizerTrainer(OFDMConfig(nbits=2), TrainConfig(
@@ -669,10 +671,12 @@ def test_equalizer_step_on_card(cuda):
     rx0 = {k: v.clone() for k, v in state.params.items()
            if k.startswith("receiver.")}
     n_fir = tpk.fir_shift_accum_kernel.launches
+    n_chain = synth_chain.synth_chain_kernel.launches
     n_cd = tpk.complex_dense_kernel.launches
     state, aux = tr.train_step_curriculum(state, g)
     torch.cuda.synchronize()
-    assert tpk.fir_shift_accum_kernel.launches == n_fir + 1
+    assert tpk.fir_shift_accum_kernel.launches == n_fir
+    assert synth_chain.synth_chain_kernel.launches == n_chain + 2
     # ToFreq, CorrT, ToTime and the receiver's fft_like
     assert tpk.complex_dense_kernel.launches == n_cd + 4
     assert state.step == 1

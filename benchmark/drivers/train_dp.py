@@ -36,6 +36,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def pin_cores(rank: int, world: int) -> list[int]:
+    """Keep rank `rank` of `world` on a slice of its own of the cores this
+    process may use (slice r of W, in the cores' order), with a few
+    threads: each mesh step reads a number back to the host, so a rank's
+    host sets the pace of every rank, and a fixed placement makes runs of
+    one build alike.  Returns the slice."""
+    import torch
+    cores = sorted(os.sched_getaffinity(0))
+    n = len(cores)
+    mine = cores[rank * n // world:(rank + 1) * n // world] or cores
+    os.sched_setaffinity(0, mine)
+    torch.set_num_threads(max(1, min(4, len(mine))))
+    return mine
+
+
 def _base_seed(torch, gen, device) -> int:
     """The draw the mesh step's rank generators are seeded from (peeked)."""
     g = torch.Generator(device=device)
@@ -129,6 +144,7 @@ def _rank(rank, world, port, cell, seed, seconds, trace_on, dev_type,
         # NVLink peers need no shared-memory transport, which would write
         # under /dev/shm
         os.environ["NCCL_SHM_DISABLE"] = "1"
+        pin_cores(rank, world)
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
     else:
